@@ -11,6 +11,12 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels of the "
+        "PyTorch port); skips where torch.cuda.is_available() is false")
+
+
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
