@@ -20,8 +20,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.kmedoids import (kmedoids_jax, kmedoids_numpy,
+from repro_torch.core.kmedoids import (kmedoids_batched,
+                                       kmedoids_batched_from_feats,
+                                       kmedoids_jax, kmedoids_numpy,
                                        pairwise_sq_dists)
+from repro_torch.kernels.ops import pairwise_l2_batched, resolve_use_kernel
 
 
 class Coreset(NamedTuple):
@@ -73,6 +76,44 @@ def build_coreset(features: torch.Tensor, budget: int, *,
                            use_kernel=use_kernel)
     else:
         raise ValueError(f"unknown k-medoids backend {backend!r}")
+    return Coreset(indices=res.medoids, weights=res.weights.float(),
+                   objective=res.objective, assignment=res.assignment)
+
+
+def build_coreset_batched(features: torch.Tensor, valid: torch.Tensor,
+                          budget: int, *, use_kernel: Optional[bool] = None,
+                          max_sweeps: int = 50, distance_free: bool = True,
+                          materialize_below: int = 256) -> Coreset:
+    """One coreset per client over a padded cohort stack (fleet engine).
+
+    features: (C, M, F) per-client gradient features, rows with
+    ``valid[c, i]`` False being padding; ``budget`` is the per-client k
+    shared by the group.  Returns a ``Coreset`` of stacked fields
+    (indices (C, k), weights (C, k), ...); each lane solves the instance
+    ``build_coreset`` would solve on that client's unpadded features.
+
+    ``materialize_below`` is the cutover on the padded M: below it the
+    (C, M, M) stack is small and recomputing distances every BUILD step
+    and Δ-sweep costs more than it saves, so selection runs the batched
+    pairwise kernel and the D-input solver.  At ``M >= materialize_below``
+    with ``distance_free`` it streams: the distance-free solver never
+    stores D.  ``materialize_below=0`` streams at any size.
+    """
+    c, m, _ = features.shape
+    budget = min(budget, m)
+    uk = resolve_use_kernel(use_kernel, features.device)
+    if distance_free and m >= materialize_below:
+        # padded rows must be zero features: their mutually-zero
+        # distances are masked in the kernels (+BIG candidates)
+        feats = features * valid.to(features.dtype)[..., None]
+        res = kmedoids_batched_from_feats(feats, valid, budget,
+                                          max_sweeps=max_sweeps,
+                                          use_kernel=uk)
+    else:
+        D = pairwise_l2_batched(features.float().contiguous(), squared=False,
+                                zero_diag=True, use_kernel=uk)
+        res = kmedoids_batched(D, valid, budget, max_sweeps=max_sweeps,
+                               use_kernel=uk)
     return Coreset(indices=res.medoids, weights=res.weights.float(),
                    objective=res.objective, assignment=res.assignment)
 

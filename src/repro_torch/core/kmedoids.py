@@ -12,6 +12,10 @@ as in the JAX package:
   with one host sync per sweep (the any-lane-still-improving test).  The
   BUILD add-cost and the Δ-sweep reductions go through
   ``repro_torch.kernels.ops`` (CUDA kernels on the card).
+* ``kmedoids_batched_from_feats`` — the same BUILD + SWAP (one shared
+  ``_build_swap``) straight from a (C, M, F) feature stack: the fleet
+  engine's selection at M ≥ 256, where the distance-free kernels rebuild
+  each distance tile from the features and D is never stored.
 
 Swap Δ (FasterPAM, Schubert & Rousseeuw 2021): with d1/d2 the nearest /
 second-nearest medoid distance of each point and n(i) its nearest slot,
@@ -31,8 +35,10 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.ops import (kmedoids_build_cost,
-                                     kmedoids_delta_sweep, pairwise_l2,
-                                     resolve_use_kernel)
+                                     kmedoids_build_cost_from_feats,
+                                     kmedoids_delta_sweep,
+                                     kmedoids_delta_sweep_from_feats,
+                                     pairwise_l2, resolve_use_kernel)
 
 BIG = 1e30
 
@@ -118,47 +124,47 @@ def _take_col(D: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(D, 2, idx[:, None, None].expand(c, m, 1))[..., 0]
 
 
-def _kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
-                      max_sweeps: int, use_kernel: bool) -> KMedoidsResult:
-    D = D.float().contiguous()
-    c, m = D.shape[0], D.shape[1]
-    dev = D.device
-    vf = valid.float().contiguous()          # (C, M) 1.0 on real samples
+def _build_swap(valid: torch.Tensor, k: int, max_sweeps: int, add_cost,
+                col_dists, medoid_dists, delta_sweep) -> KMedoidsResult:
+    """BUILD + SWAP over a cohort, whatever holds the distances.
+
+    ``add_cost(d_near)`` is the (C, M) BUILD add-cost, ``col_dists(idx)``
+    the (C, M) distances to column idx[c], ``medoid_dists(medoids)`` the
+    (C, M, k) distances to the medoid set and ``delta_sweep(d1, d2,
+    onehot)`` the FasterPAM (A, B) pair; the D-input and the distance-free
+    solvers differ only in these four."""
+    c, m = valid.shape
+    dev = valid.device
     invalid = ~valid.bool()
     iota_m = torch.arange(m, device=dev)
     iota_k = torch.arange(k, device=dev)
 
     # ---- BUILD (greedy adds; sums masked by vf, invalid candidates BIG) ---
-    def add_cost(d_near):
-        # Σ_i min(d_near_i, D_ij)·vf_i (d_near = +BIG for the first pick
-        # reduces it to the column sum)
-        return kmedoids_build_cost(D, d_near, vf, use_kernel=use_kernel)
-
+    # d_near = +BIG for the first pick reduces the add-cost to the column sum
     cost0 = torch.where(invalid, BIG,
                         add_cost(torch.full((c, m), BIG, device=dev)))
     first = torch.argmin(cost0, dim=1)                             # (C,)
-    d_near = _take_col(D, first)
+    d_near = col_dists(first)
     chosen = iota_m[None] == first[:, None]
     picks = [first]
     for _ in range(k - 1):
         cost = torch.where(chosen | invalid, BIG, add_cost(d_near))
         nxt = torch.argmin(cost, dim=1)
-        d_near = torch.minimum(d_near, _take_col(D, nxt))
+        d_near = torch.minimum(d_near, col_dists(nxt))
         chosen = chosen | (iota_m[None] == nxt[:, None])
         picks.append(nxt)
     medoids = torch.stack(picks, dim=1)                            # (C, k)
 
     # ---- SWAP sweeps (FasterPAM Δ table; all reductions masked by vf) -----
     def sweep(medoids):
-        dm = torch.gather(D, 2, medoids[:, None, :].expand(c, m, k))
+        dm = medoid_dists(medoids)                                # (C, M, k)
         d1 = torch.amin(dm, dim=-1)
         n_idx = torch.argmin(dm, dim=-1)
         n_onehot = iota_k[None, None] == n_idx[..., None]
         # second-nearest = min with the nearest slot masked out
         # (k = 1 masks everything, giving the conventional d2 = BIG)
         d2 = torch.amin(torch.where(n_onehot, BIG, dm), dim=-1)
-        A, B = kmedoids_delta_sweep(D, d1, d2, vf, n_onehot.float(),
-                                    use_kernel=use_kernel)
+        A, B = delta_sweep(d1, d2, n_onehot.float())
         delta = A[..., None] + B                                  # (C, M, k)
         is_medoid = (iota_m[None, :, None] == medoids[:, None, :]).any(-1)
         delta = torch.where((is_medoid | invalid)[..., None], BIG, delta)
@@ -177,13 +183,32 @@ def _kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
         medoids, best = sweep(medoids)
         it += 1
 
-    dm = torch.gather(D, 2, medoids[:, None, :].expand(c, m, k))
+    dm = medoid_dists(medoids)
     assignment = torch.where(valid.bool(), torch.argmin(dm, dim=-1), -1)
     weights = (assignment[..., None] == iota_k).sum(dim=1)
-    objective = torch.sum(torch.amin(dm, dim=-1) * vf, dim=1)
+    objective = torch.sum(torch.amin(dm, dim=-1) * valid.float(), dim=1)
     return KMedoidsResult(medoids.to(torch.int32),
                           assignment.to(torch.int32),
                           weights.to(torch.int32), objective)
+
+
+def _kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
+                      max_sweeps: int, use_kernel: bool) -> KMedoidsResult:
+    D = D.float().contiguous()
+    c, m = D.shape[0], D.shape[1]
+    vf = valid.float().contiguous()          # (C, M) 1.0 on real samples
+
+    def medoid_dists(medoids):
+        return torch.gather(D, 2, medoids[:, None, :].expand(c, m, k))
+
+    return _build_swap(
+        valid, k, max_sweeps,
+        add_cost=lambda d_near: kmedoids_build_cost(
+            D, d_near, vf, use_kernel=use_kernel),
+        col_dists=lambda idx: _take_col(D, idx),
+        medoid_dists=medoid_dists,
+        delta_sweep=lambda d1, d2, onehot: kmedoids_delta_sweep(
+            D, d1, d2, vf, onehot, use_kernel=use_kernel))
 
 
 def kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
@@ -201,6 +226,69 @@ def kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
     return _kmedoids_batched(D, valid, min(int(k), D.shape[-1]),
                              int(max_sweeps),
                              resolve_use_kernel(use_kernel, D.device))
+
+
+# ---------------------------------------------------------------------------
+# distance-free solver: same BUILD + SWAP, D never materialized
+# ---------------------------------------------------------------------------
+
+def _col_dists(xf: torch.Tensor, sq: torch.Tensor,
+               idx: torch.Tensor) -> torch.Tensor:
+    """(C, M) distances of every row to row idx[c], rebuilt from the
+    features, with an exact zero at the self index."""
+    c, m, f = xf.shape
+    xc = torch.gather(xf, 1, idx[:, None, None].expand(c, 1, f))  # (C, 1, F)
+    sqc = torch.gather(sq, 1, idx[:, None])                       # (C, 1)
+    d2 = (sq + sqc) - 2.0 * torch.sum(xf * xc, dim=-1)
+    d = torch.sqrt(torch.clamp_min(d2, 0.0))
+    iota_m = torch.arange(m, device=xf.device)
+    return torch.where(iota_m[None] == idx[:, None], 0.0, d)
+
+
+def _medoid_dists(xf: torch.Tensor, sq: torch.Tensor,
+                  medoids: torch.Tensor) -> torch.Tensor:
+    """(C, M, k) distances to the medoid set, one rebuilt column per slot.
+
+    Row sums over F, not a batched matrix product: a row sum gives each
+    client the same bits whatever the cohort's size, where a product's
+    library kernel may split its sum by the batch's shape — and the loop
+    engine (one client) must pick the medoids the batched one picks."""
+    return torch.stack([_col_dists(xf, sq, medoids[:, s])
+                        for s in range(medoids.shape[1])], dim=-1)
+
+
+def _kmedoids_batched_from_feats(feats: torch.Tensor, valid: torch.Tensor,
+                                 k: int, max_sweeps: int,
+                                 use_kernel: bool) -> KMedoidsResult:
+    xf = feats.float().contiguous()
+    sq = torch.sum(xf * xf, dim=-1)          # (C, M) squared norms, once
+    vf = valid.float().contiguous()
+    return _build_swap(
+        valid, k, max_sweeps,
+        add_cost=lambda d_near: kmedoids_build_cost_from_feats(
+            xf, d_near, vf, use_kernel=use_kernel),
+        col_dists=lambda idx: _col_dists(xf, sq, idx),
+        medoid_dists=lambda medoids: _medoid_dists(xf, sq, medoids),
+        delta_sweep=lambda d1, d2, onehot: kmedoids_delta_sweep_from_feats(
+            xf, d1, d2, vf, onehot, use_kernel=use_kernel))
+
+
+def kmedoids_batched_from_feats(feats: torch.Tensor, valid: torch.Tensor,
+                                k: int, max_sweeps: int = 50,
+                                use_kernel: Optional[bool] = None
+                                ) -> KMedoidsResult:
+    """Distance-free twin of :func:`kmedoids_batched`.
+
+    feats: (C, M, F) per-client feature stack; valid: (C, M) masks.  Same
+    BUILD + SWAP and masking contract, but the (C, M, M) distance stack is
+    never materialized on the kernel path: the BUILD add-cost and the
+    Δ-sweep rebuild distance tiles from the features, and the only other
+    distance tensors are (C, M) columns and the (C, M, k) medoid slab.
+    Padded lanes must carry zero feature rows; the reductions mask those
+    candidates to +BIG so they can never tie-win a medoid election."""
+    return _kmedoids_batched_from_feats(
+        feats, valid, min(int(k), feats.shape[1]), int(max_sweeps),
+        resolve_use_kernel(use_kernel, feats.device))
 
 
 def kmedoids_masked(D: torch.Tensor, valid: torch.Tensor, k: int,

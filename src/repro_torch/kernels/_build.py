@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels in ``csrc/`` at their first use.
 
-Each ``.cu`` file has a plain C entry point and is compiled on its own
-by ``nvcc`` for ``sm_90a`` into a shared library under
+Each ``.cu`` file has plain C entry points (one per kernel it holds) and
+is compiled on its own by ``nvcc`` for ``sm_90a`` into a shared library
+under
 ``build/repro_torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``); the libraries are loaded with ``ctypes``.  All sources
 are compiled in parallel, one ``nvcc`` process each.  A library's file
@@ -36,10 +37,18 @@ KERNELS = {
                    [_P] * 4 + [_I] * 2 + [_P]),
     "delta_sweep": ("delta_sweep.cu", "fedcore_delta_sweep",
                     [_P] * 7 + [_I] * 3 + [_P]),
+    "pairwise_l2_batched": ("pairwise_l2.cu", "fedcore_pairwise_l2_batched",
+                            [_P] * 3 + [_I] * 5 + [_P]),
+    "build_cost_from_feats": ("kmedoids_from_feats.cu",
+                              "fedcore_build_cost_from_feats",
+                              [_P] * 5 + [_I] * 3 + [_P]),
+    "delta_sweep_from_feats": ("kmedoids_from_feats.cu",
+                               "fedcore_delta_sweep_from_feats",
+                               [_P] * 8 + [_I] * 4 + [_P]),
 }
 
 _LOADED: Dict[str, object] = {}
-# compiler report of the last build: kernel name -> nvcc/ptxas output
+# compiler report of the last build: source file -> nvcc/ptxas output
 # (registers, shared memory, spills; chip_smoke.py prints it)
 BUILD_LOG: Dict[str, str] = {}
 
@@ -66,7 +75,7 @@ def build_all(nvcc: Optional[str] = None) -> float:
     """Compile every kernel whose library is missing, in parallel.
 
     Returns the wall seconds spent building (0.0 when all were built)."""
-    todo = {name: _library_path(src) for name, (src, _, _) in KERNELS.items()
+    todo = {src: _library_path(src) for src, _, _ in KERNELS.values()
             if not _library_path(src).exists()}
     if not todo:
         return 0.0
@@ -74,17 +83,17 @@ def build_all(nvcc: Optional[str] = None) -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
-    for name, lib in todo.items():
+    for src, lib in todo.items():
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, lib, cmd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / src)]
+        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True),
+                      tmp, lib, cmd)
     failed = []
-    for name, (proc, tmp, lib, cmd) in procs.items():
+    for src, (proc, tmp, lib, cmd) in procs.items():
         out, _ = proc.communicate()
-        BUILD_LOG[name] = out
+        BUILD_LOG[src] = out
         if proc.returncode != 0:
             failed.append(f"{' '.join(cmd)}\n{out}")
             os.unlink(tmp)

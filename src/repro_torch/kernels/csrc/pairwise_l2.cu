@@ -1,8 +1,14 @@
 // Pairwise squared / Euclidean distances on Hopper (sm_90a), fp32 SIMT.
 //
-// Replaces the Pallas TPU kernel src/repro/kernels/pairwise_l2.py::
-// pairwise_l2_pallas (pallas_call at :75), reached through
-// repro.kernels.ops.pairwise_l2.
+// Replaces two Pallas TPU kernels of src/repro/kernels/pairwise_l2.py:
+// pairwise_l2_pallas (pallas_call at :75, reached through
+// repro.kernels.ops.pairwise_l2) with the entry point fedcore_pairwise_l2,
+// and pairwise_l2_batched_pallas (pallas_call at :138, reached through
+// repro.kernels.ops.pairwise_l2_batched: the fleet engine's per-client
+// self-distance stacks below the distance-free cutover) with
+// fedcore_pairwise_l2_batched.  Both run the one kernel below; the batched
+// entry point adds a client index, blockIdx.z, with per-client strides
+// (the TPU kernel's leading client grid axis).
 //
 //   out[r, c] = max(xsq[r] + ysq[c] - 2 * <x_r, y_c>, 0)   (sqrt unless squared)
 //   out[r, r] = 0 exactly when zero_diag (self-distance mode)
@@ -19,6 +25,8 @@
 // plain version, kernels/ref.py::pairwise_l2_ref, so the two agree bit
 // for bit and a kernel run and a plain run pick the same medoids.  The
 // price is two instructions where one FFMA would do.
+//
+// Bound of the batched form: C times the above, per client's (M, M) stack.
 //
 // Design: one 256-thread block owns a 64x64 output tile and walks d in
 // chunks of 16.  Each chunk of x and y is staged in shared memory,
@@ -53,6 +61,13 @@ pairwise_l2_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int ty = tid / 16;
   const int row0 = blockIdx.y * kBM;
   const int col0 = blockIdx.x * kBN;
+  // client of the batched form (0 for the single-matrix entry point)
+  const size_t c = blockIdx.z;
+  x += c * m * d;
+  y += c * n * d;
+  xsq += c * m;
+  ysq += c * n;
+  out += c * m * n;
 
   float acc[4][4];
 #pragma unroll
@@ -118,5 +133,18 @@ extern "C" int fedcore_pairwise_l2(const float* x, const float* y,
   const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
   pairwise_l2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       x, y, xsq, ysq, out, m, n, d, squared, zero_diag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (C, M, D), xsq (C, M) -> out (C, M, M): each client's self-distance
+// matrix; all fp32, contiguous, on the device.  Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int fedcore_pairwise_l2_batched(const float* x, const float* xsq,
+                                           float* out, int c, int m, int d,
+                                           int squared, int zero_diag,
+                                           void* stream) {
+  const dim3 grid((m + kBN - 1) / kBN, (m + kBM - 1) / kBM, c);
+  pairwise_l2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, x, xsq, xsq, out, m, m, d, squared, zero_diag);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,7 +21,9 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"pairwise_l2": 0, "build_cost": 0,
-                            "delta_sweep": 0}
+                            "delta_sweep": 0, "pairwise_l2_batched": 0,
+                            "build_cost_from_feats": 0,
+                            "delta_sweep_from_feats": 0}
 
 
 def reset_launch_counts() -> None:
@@ -99,6 +101,28 @@ def pairwise_l2(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
     return out
 
 
+def pairwise_l2_batched(x: torch.Tensor, *, squared: bool = False,
+                        zero_diag: bool = False,
+                        use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """Per-client self-distance stacks (C, M, D) -> (C, M, M), fp32.
+
+    The fleet engine's selection front end below the distance-free
+    cutover.  ``zero_diag`` pins each client's self-distance diagonal to
+    exact zeros for k-medoids consumers."""
+    if not resolve_use_kernel(use_kernel, x.device):
+        out = ref.pairwise_l2_batched_ref(x, squared=squared)
+        return zero_self_diag(out) if zero_diag else out
+    c, m, d = x.shape
+    _check("pairwise_l2_batched x", x, (c, m, d), x.device)
+    xsq = torch.sum(x * x, dim=-1)
+    out = torch.empty((c, m, m), dtype=torch.float32, device=x.device)
+    if out.numel():
+        _launch("pairwise_l2_batched", x.device, x.data_ptr(),
+                xsq.data_ptr(), out.data_ptr(), c, m, d, int(squared),
+                int(zero_diag))
+    return out
+
+
 def kmedoids_build_cost(D: torch.Tensor, d_near: torch.Tensor,
                         vf: torch.Tensor, *,
                         use_kernel: Optional[bool] = None) -> torch.Tensor:
@@ -137,4 +161,56 @@ def kmedoids_delta_sweep(D: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
         _launch("delta_sweep", D.device, D.data_ptr(), d1.data_ptr(),
                 d2.data_ptr(), vf.data_ptr(), n_onehot.data_ptr(),
                 A.data_ptr(), B.data_ptr(), c, m, k)
+    return A, B
+
+
+def kmedoids_build_cost_from_feats(x: torch.Tensor, d_near: torch.Tensor,
+                                   vf: torch.Tensor, *,
+                                   use_kernel: Optional[bool] = None
+                                   ) -> torch.Tensor:
+    """Distance-free BUILD add-cost: x (C, M, F), d_near/vf (C, M) ->
+    (C, M), with the (C, M, M) distance stack never stored on the kernel
+    path.  Padded candidates (vf = 0) return +BIG, so a zero-padded
+    feature row can never win the greedy argmin; padded rows add
+    nothing."""
+    if not resolve_use_kernel(use_kernel, x.device):
+        return ref.kmedoids_build_cost_from_feats_ref(x, d_near, vf)
+    c, m, f = x.shape
+    _check("build_cost_from_feats x", x, (c, m, f), x.device)
+    _check("build_cost_from_feats d_near", d_near, (c, m), x.device)
+    _check("build_cost_from_feats vf", vf, (c, m), x.device)
+    sq = torch.sum(x * x, dim=-1)
+    out = torch.empty((c, m), dtype=torch.float32, device=x.device)
+    if out.numel():
+        _launch("build_cost_from_feats", x.device, x.data_ptr(),
+                sq.data_ptr(), d_near.data_ptr(), vf.data_ptr(),
+                out.data_ptr(), c, m, f)
+    return out
+
+
+def kmedoids_delta_sweep_from_feats(x: torch.Tensor, d1: torch.Tensor,
+                                    d2: torch.Tensor, vf: torch.Tensor,
+                                    n_onehot: torch.Tensor, *,
+                                    use_kernel: Optional[bool] = None):
+    """Distance-free FasterPAM Δ-sweep: x (C, M, F); d1/d2/vf (C, M);
+    n_onehot (C, M, K).  Returns (A (C, M), B (C, M, K)) as
+    ``kmedoids_delta_sweep`` on the feature stack's distances, with
+    A = +BIG at padded candidates (vf = 0) so a zero-padded row can never
+    win a swap."""
+    if not resolve_use_kernel(use_kernel, x.device):
+        return ref.kmedoids_delta_sweep_from_feats_ref(x, d1, d2, vf,
+                                                       n_onehot)
+    c, m, f = x.shape
+    k = n_onehot.shape[-1]
+    _check("delta_sweep_from_feats x", x, (c, m, f), x.device)
+    for name, t in (("d1", d1), ("d2", d2), ("vf", vf)):
+        _check(f"delta_sweep_from_feats {name}", t, (c, m), x.device)
+    _check("delta_sweep_from_feats n_onehot", n_onehot, (c, m, k), x.device)
+    sq = torch.sum(x * x, dim=-1)
+    A = torch.empty((c, m), dtype=torch.float32, device=x.device)
+    B = torch.empty((c, m, k), dtype=torch.float32, device=x.device)
+    if B.numel():
+        _launch("delta_sweep_from_feats", x.device, x.data_ptr(),
+                sq.data_ptr(), d1.data_ptr(), d2.data_ptr(), vf.data_ptr(),
+                n_onehot.data_ptr(), A.data_ptr(), B.data_ptr(), c, m, f, k)
     return A, B

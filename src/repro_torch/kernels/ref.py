@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+BIG = 1e30      # padded-candidate mask (``repro_torch.core.kmedoids.BIG``)
+
 
 def pairwise_l2_ref(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
                     squared: bool = False) -> torch.Tensor:
@@ -33,6 +35,22 @@ def pairwise_l2_ref(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
     sq = (torch.sum(xf * xf, dim=-1)[:, None]
           + torch.sum(yf * yf, dim=-1)[None, :]) - 2.0 * cross
     sq = torch.clamp_min(sq, 0.0)
+    return sq if squared else torch.sqrt(sq)
+
+
+def pairwise_l2_batched_ref(x: torch.Tensor, *,
+                            squared: bool = False) -> torch.Tensor:
+    """(C, M, D) -> (C, M, M) per-client self-distance stacks: each
+    client's ``pairwise_l2_ref(x[c])``, the cross term summed over d in
+    order."""
+    xf = x.float()
+    cross = torch.zeros(xf.shape[:-1] + xf.shape[-2:-1], dtype=torch.float32,
+                        device=xf.device)
+    for k in range(xf.shape[-1]):
+        cross += xf[..., :, k, None] * xf[..., None, :, k]
+    sq = torch.sum(xf * xf, dim=-1)
+    sq = torch.clamp_min((sq[..., :, None] + sq[..., None, :]) - 2.0 * cross,
+                         0.0)
     return sq if squared else torch.sqrt(sq)
 
 
@@ -80,3 +98,39 @@ def kmedoids_delta_sweep_ref(D: torch.Tensor, d1: torch.Tensor,
         contrib = (torch.clamp(Di, lo, hi) - lo) * w
         B += contrib[..., :, None] * n_onehot[..., i, None, :]
     return A, B
+
+
+# ---------------------------------------------------------------------------
+# distance-free versions: these DO materialize D, as the JAX package's
+# oracles do; the CUDA kernels rebuild each distance tile from the
+# features in the same arithmetic, so the two agree bit for bit
+# ---------------------------------------------------------------------------
+
+def _pairwise_from_feats(x: torch.Tensor) -> torch.Tensor:
+    """(..., M, F) -> (..., M, M) Euclidean stack with an exact-zero
+    diagonal."""
+    d = pairwise_l2_batched_ref(x)
+    eye = torch.eye(x.shape[-2], dtype=torch.bool, device=x.device)
+    return torch.where(eye, 0.0, d)
+
+
+def kmedoids_build_cost_from_feats_ref(x: torch.Tensor, d_near: torch.Tensor,
+                                       vf: torch.Tensor) -> torch.Tensor:
+    """BUILD add-cost straight from the features: x (..., M, F),
+    d_near/vf (..., M) -> (..., M).  ``kmedoids_build_cost_ref`` on the
+    rebuilt distance stack, with padded candidate columns (vf_j = 0) at
+    +BIG so a zero-padded feature row can never win the greedy argmin."""
+    cost = kmedoids_build_cost_ref(_pairwise_from_feats(x), d_near, vf)
+    return torch.where(vf > 0.0, cost, BIG)
+
+
+def kmedoids_delta_sweep_from_feats_ref(x: torch.Tensor, d1: torch.Tensor,
+                                        d2: torch.Tensor, vf: torch.Tensor,
+                                        n_onehot: torch.Tensor):
+    """FasterPAM (A, B) straight from the features: x (..., M, F),
+    d1/d2/vf (..., M), n_onehot (..., M, K).  ``kmedoids_delta_sweep_ref``
+    on the rebuilt distance stack, with A = +BIG at padded candidates
+    (vf_j = 0) so a zero-padded row can never win a swap."""
+    A, B = kmedoids_delta_sweep_ref(_pairwise_from_feats(x), d1, d2, vf,
+                                    n_onehot)
+    return torch.where(vf > 0.0, A, BIG), B

@@ -33,7 +33,7 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 def test_importing_the_runtime_loads_no_jax():
     code = ("import sys, repro_torch.fed.server, repro_torch.kernels.ops, "
-            "repro_torch.convert; "
+            "repro_torch.convert, repro_torch.fed.fleet; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad; print('ok')")
@@ -62,4 +62,9 @@ def test_entry_points_without_device_need_cuda():
         model.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         make_eval_fn(model, {"x": None, "y": None}, 4)
+    from repro_torch.fed.fleet import FleetConfig, FleetEngine, run_fleet
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FleetEngine(model, FleetConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_fleet(model, [], [], FleetConfig(), 1)
     assert resolve_device("cpu") == torch.device("cpu")

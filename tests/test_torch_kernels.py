@@ -79,8 +79,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.kmedoids_build_cost(D, D[:, 0], torch.ones(1, 9))
     ops.kmedoids_delta_sweep(D, D[:, 0], D[:, 1], torch.ones(1, 9),
                              torch.ones(1, 9, 2))
-    assert ops.LAUNCHES == {"pairwise_l2": 0, "build_cost": 0,
-                            "delta_sweep": 0}
+    xb = x[None]
+    ops.pairwise_l2_batched(xb, zero_diag=True)
+    ops.kmedoids_build_cost_from_feats(xb, D[:, 0], torch.ones(1, 9))
+    ops.kmedoids_delta_sweep_from_feats(xb, D[:, 0], D[:, 1],
+                                        torch.ones(1, 9), torch.ones(1, 9, 2))
+    assert ops.LAUNCHES == dict.fromkeys(
+        ("pairwise_l2", "build_cost", "delta_sweep", "pairwise_l2_batched",
+         "build_cost_from_feats", "delta_sweep_from_feats"), 0)
 
 
 def test_use_kernel_true_on_a_cpu_tensor_raises():
