@@ -9,14 +9,18 @@ phases run in order and any failure exits non-zero:
 1. set-up: the card's name and power limit, the torch and CUDA versions,
    TF32 off for matrix products and cuDNN convolutions, deterministic
    cuDNN, and the build of
-   the six CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
+   the seven CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a, one process per source, compiled in parallel);
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes: error, kernel / plain / library time, least time (the
    bound), at rtol 1e-5 and atol 1e-5·max|plain| (the two sum in the same
    order and should agree bit for bit; the tolerance is the one a
    reordered float32 sum would need); the 1e30 padded-candidate masks of
-   the distance-free kernels must be equal exactly;
+   the distance-free kernels must be equal exactly; flash attention at
+   the JAX kernel tests' shapes, a ragged S, the ``translm`` fleet's own
+   shapes and yi-9b's attention for one 4096-token sequence, fp32 and
+   bf16, with ``scaled_dot_product_attention`` timed as the library
+   yardstick;
 3. the main path at full width: ``run_federated`` with ``FedCore`` on
    ``SmallCNN()`` (28x28, channels 16/32, F = 1568) over 200 pseudo-MNIST
    clients (Table 1 sizes: mean 69, std 106), 3 rounds of 10 clients,
@@ -44,7 +48,25 @@ phases run in order and any failure exits non-zero:
    same medoids per (round, client) and end on bit-identical parameters;
    one round of ``engine="loop"`` picks the batched round's medoids and
    ends within the reference's ``PARAMS_ATOL`` (2e-4 for the CNN) of its
-   parameters.
+   parameters;
+8. the ``translm`` fleet at the registry's widths (one pre-norm decoder
+   block, d_model 32, two heads of 16, S = 16; attention through the
+   flash-attention kernel, under ``vmap(grad)`` in the SGD steps):
+   ``run_fleet(engine="batched")`` over 200 char-LM clients at the
+   paper's Table-1 sizes, every client every round, 3 rounds, E = 5,
+   selection groups on both sides of M = 256; the launch counts are set
+   to 0 just before and read just after, and the attention kernel and the
+   fleet's selection kernels must each have launched; round walls, wall
+   by span, and one more round bare and one under ``torch.profiler``
+   (idle share, device time by activity);
+9. the ``translm`` A/Bs: (a) the same 3 rounds with ``use_kernel=False``
+   (selection on the plain versions) pick the same medoids per (round,
+   client) and end every round on bit-identical parameters; (b) one round
+   of ``engine="loop"`` picks the batched round's medoids and ends within
+   the reference's ``PARAMS_ATOL`` for translm (1e-5); (c) at one batch
+   of the largest group, attention through the kernel against the naive
+   attention: logits within 1e-4, every parameter's gradient within
+   1e-5·max|g|.
 
 The last lines are the card (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON object of kernel numbers, and the result line
@@ -53,6 +75,7 @@ without a CUDA device or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -66,6 +89,7 @@ SRC = ROOT / "src"
 # and HBM3 bandwidth; the bound of a kernel is the larger of its bytes over
 # the bandwidth and its operations over the fp32 rate
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate, the bound of bf16 work
 PEAK_BYTES_PER_S = 3.35e12
 RTOL = 1e-5
 
@@ -84,25 +108,31 @@ KERNEL_META = {
     "delta_sweep_from_feats": (
         "src/repro_torch/kernels/csrc/kmedoids_from_feats.cu",
         "src/repro/kernels/kmedoids_pallas.py:357"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:103"),
 }
 HEADLINE = {"pairwise_l2": (2048, 1568), "build_cost": (1, 2048),
             "delta_sweep": (2048, 700), "pairwise_l2_batched": (16, 128),
             "build_cost_from_feats": (1, 2048),
-            "delta_sweep_from_feats": (1, 2048, 130)}
+            "delta_sweep_from_feats": (1, 2048, 130),
+            "flash_attention": "translm step"}
 # the main path each kernel belongs to: its launches in the kernels line
 # are that path's (every path's counts are printed beside them)
 PATH_OF = {"pairwise_l2": "sync", "build_cost": "sync",
            "delta_sweep": "sync", "pairwise_l2_batched": "fleet",
            "build_cost_from_feats": "fleet",
-           "delta_sweep_from_feats": "fleet"}
+           "delta_sweep_from_feats": "fleet",
+           "flash_attention": "fleet_translm"}
 # the kernels each main path must launch
 SYNC_KERNELS = ("pairwise_l2", "build_cost", "delta_sweep")
 FLEET_KERNELS = ("pairwise_l2_batched", "build_cost_from_feats",
                  "delta_sweep_from_feats", "build_cost", "delta_sweep")
+SELECTION_KERNELS = SYNC_KERNELS + FLEET_KERNELS[:3]
 FEATS = 1568            # SmallCNN's feature width at 28x28, channels 16/32
 # the reference's loop-vs-batched parameter tolerance
 # (tests/test_workload_conformance.py PARAMS_ATOL)
 PARAMS_ATOL_CNN = 2e-4
+PARAMS_ATOL_TRANSLM = 1e-5
 
 
 class PhaseFailed(RuntimeError):
@@ -144,9 +174,9 @@ def time_ms(fn, target_ms: float = 60.0) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, peak_flops: float = PEAK_FP32_FLOPS):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = nops / PEAK_FP32_FLOPS * 1e3
+    t_ops = nops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -172,9 +202,11 @@ def compare(got, want):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_cases(dev):
+def kernel_cases(dev, attn_shapes):
     """(kernel, label, shape key, run(use_kernel) -> tensors, bytes, ops,
-    library call or None) at the main path's shapes."""
+    library call or None, peak FLOP/s of the operations' type) at the
+    main paths' shapes; ``attn_shapes`` names the ``translm`` fleet's own
+    attention shapes."""
     import torch
 
     from repro_torch.kernels import ops
@@ -193,7 +225,7 @@ def kernel_cases(dev):
 
         cases.append(("pairwise_l2", f"m={m} d={d}", (m, d), run,
                       4.0 * (m * d + m * m), 2.0 * m * m * d + 4.0 * m * m,
-                      lib))
+                      lib, PEAK_FP32_FLOPS))
     for c in (1, 4):
         for m in (37, 1000, 2048):
             D = torch.rand(c, m, m, generator=g, device=dev)
@@ -205,7 +237,7 @@ def kernel_cases(dev):
 
             cases.append(("build_cost", f"C={c} M={m}", (c, m), run,
                           4.0 * (c * m * m + 3 * c * m), 3.0 * c * m * m,
-                          None))
+                          None, PEAK_FP32_FLOPS))
     # the fleet's selection group below the cutover: C=25, M=128, k=64
     D = torch.rand(25, 128, 128, generator=g, device=dev)
     dn = torch.rand(25, 128, generator=g, device=dev)
@@ -216,7 +248,7 @@ def kernel_cases(dev):
 
     cases.append(("build_cost", "C=25 M=128 (fleet)", (25, 128), run,
                   4.0 * (25 * 128 * 128 + 3 * 25 * 128),
-                  3.0 * 25 * 128 * 128, None))
+                  3.0 * 25 * 128 * 128, None, PEAK_FP32_FLOPS))
     for c, m, ks in ((1, 37, (1, 7)), (1, 1000, (1, 7, 130, 700)),
                      (1, 2048, (1, 7, 130, 700)), (25, 128, (64,))):
         D = torch.rand(c, m, m, generator=g, device=dev)
@@ -239,7 +271,8 @@ def kernel_cases(dev):
             cases.append(("delta_sweep", label,
                           (m, k) if c == 1 else (c, m, k), run,
                           4.0 * c * (m * m + 4 * m + 2 * m * k),
-                          9.0 * c * m * m + 2.0 * nnz * m, None))
+                          9.0 * c * m * m + 2.0 * nnz * m, None,
+                          PEAK_FP32_FLOPS))
 
     # the fleet's kernels: per-client pairwise stacks below the cutover,
     # the distance-free BUILD and Δ-sweep at and above it, at SmallCNN's
@@ -259,7 +292,8 @@ def kernel_cases(dev):
         cases.append(("pairwise_l2_batched", f"C={c} M={m} D={d}"
                       + (" (fleet)" if c == 25 else ""), (c, m),
                       run, 4.0 * (c * m * d + c * m * m),
-                      2.0 * c * m * m * d + 5.0 * c * m * m, lib))
+                      2.0 * c * m * m * d + 5.0 * c * m * m, lib,
+                      PEAK_FP32_FLOPS))
     # C=22, M=256, K=64 is the fleet's main distance-free group (phase 6)
     for c, m, padded, ks in ((4, 512, False, (1, 7, 130)),
                              (4, 512, True, (7,)),
@@ -282,7 +316,8 @@ def kernel_cases(dev):
         # per (i, j): the 2F dot, 5 epilogue and 3 BUILD operations
         cases.append(("build_cost_from_feats", tag, (c, m), run,
                       4.0 * (c * m * FEATS + 3 * c * m),
-                      (2.0 * FEATS + 8.0) * c * m * m, None))
+                      (2.0 * FEATS + 8.0) * c * m * m, None,
+                      PEAK_FP32_FLOPS))
         d1 = 60.0 * torch.rand(c, m, generator=g, device=dev)
         d2 = d1 + 10.0 * torch.rand(c, m, generator=g, device=dev)
         for k in ks:
@@ -300,13 +335,70 @@ def kernel_cases(dev):
                           (c, m, k), run,
                           4.0 * (c * m * FEATS + 4 * c * m + 2 * c * m * k),
                           (2.0 * FEATS + 13.0) * c * m * m
-                          + 2.0 * nnz * m, None))
+                          + 2.0 * nnz * m, None, PEAK_FP32_FLOPS))
+    cases += attention_cases(dev, g, attn_shapes)
     return cases
 
 
-def phase_kernels(dev):
+def attention_cases(dev, g, attn_shapes):
+    """Flash attention (kernel 7) cases in ``kernel_cases``'s form, all
+    causal, at (B, Hq, Hk, S, hd, window, dtype, what, shape key)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = [(2, 4, 2, 128, 64, None, f32, "JAX test", None),
+              (1, 4, 4, 256, 32, None, f32, "JAX test", None),
+              (2, 8, 1, 128, 64, None, f32, "JAX test", None),
+              (1, 2, 2, 64, 128, None, f32, "JAX test", None),
+              (1, 4, 2, 128, 64, 16, f32, "JAX test", None),
+              (1, 4, 2, 128, 64, 48, f32, "JAX test", None),
+              (1, 4, 2, 128, 64, 128, f32, "JAX test", None),
+              (1, 2, 2, 128, 64, None, bf16, "JAX test", None),
+              (2, 4, 2, 40, 64, None, f32, "ragged S", None)]
+    shapes += [(b, 2, 2, 16, 16, None, f32, label, key)
+               for b, label, key in attn_shapes]
+    shapes += [(1, 32, 4, 4096, 128, None, dt, "yi-9b train_4k", None)
+               for dt in (f32, bf16)]
+    cases = []
+    for b, hq, hk, s, hd, window, dt, what, key in shapes:
+        q = torch.randn(b, hq, s, hd, generator=g, device=dev).to(dt)
+        k = torch.randn(b, hk, s, hd, generator=g, device=dev).to(dt)
+        v = torch.randn(b, hk, s, hd, generator=g, device=dev).to(dt)
+
+        def run(uk, q=q, k=k, v=v, window=window):
+            return (ops.flash_attention(q, k, v, window=window,
+                                        use_kernel=uk),)
+
+        mask = ref.attention_mask(s, True, window, dev)
+
+        def lib(q=q, k=k, v=v, mask=mask, windowed=window is not None,
+                gqa=hq != hk):
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask if windowed else None,
+                is_causal=not windowed, enable_gqa=gqa)
+
+        # the work: 4·hd operations per visible (q, k) pair and head (the
+        # score and the weighted sum of V); each of q, k, v read once and
+        # the output written once
+        pairs = float(mask.sum())
+        label = (f"B={b} Hq={hq} Hk={hk} S={s} hd={hd}"
+                 + (f" window={window}" if window else "")
+                 + (" bf16" if dt == bf16 else "") + f" ({what})")
+        cases.append(("flash_attention", label, key, run,
+                      float(q.element_size() * (2 * q.numel() + k.numel()
+                                                + v.numel())),
+                      4.0 * hd * pairs * b * hq, lib,
+                      PEAK_BF16_FLOPS if dt == bf16 else PEAK_FP32_FLOPS))
+    return cases
+
+
+def phase_kernels(dev, attn_shapes):
     results = {}
-    for name, label, key, run, nbytes, nops, lib in kernel_cases(dev):
+    for name, label, key, run, nbytes, nops, lib, peak in kernel_cases(
+            dev, attn_shapes):
         got, want = run(True), run(False)
         errs = [compare(a, b) for a, b in zip(got, want)]
         max_abs = max(e[0] for e in errs)
@@ -315,10 +407,10 @@ def phase_kernels(dev):
         ms = time_ms(lambda: run(True))
         plain_ms = time_ms(lambda: run(False))
         lib_ms = time_ms(lib) if lib is not None else None
-        b_ms, b_by = bound(nbytes, nops)
+        b_ms, b_by = bound(nbytes, nops, peak)
         lib_s = ("none (no single PyTorch call computes it)"
                  if lib_ms is None else f"{lib_ms:.4f} ms")
-        log(f"  {name:22s} {label:22s} max_abs {max_abs:.3e} max_rel "
+        log(f"  {name:22s} {label:24s} max_abs {max_abs:.3e} max_rel "
             f"{max_rel:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"library {lib_s} "
             f"bound {b_ms:.4f} ms ({b_by}) {'ok' if ok else 'MISMATCH'}")
@@ -647,29 +739,29 @@ def report_fleet_rounds(records):
 
 
 def device_busy_share(fn):
-    """Run ``fn`` under ``torch.profiler``; returns (wall s, device busy
-    s, {device activity name: s}) with busy the union of the card's
-    kernel and copy intervals, or None for busy when the profiler saw no
-    device activity."""
+    """Run ``fn`` under ``torch.profiler`` (device activity only); returns
+    (wall s, device busy s, {device activity name: s}) with busy the union
+    of the card's kernel and copy intervals, or None for busy when the
+    profiler saw no device activity.  The profiler's raw events are read
+    directly: building its Python event tree for a round of a few hundred
+    thousand launches takes minutes."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_events = [e for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
+    dev_events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
     by_name = {}
-    for e in dev_events:
-        by_name[e.name] = (by_name.get(e.name, 0.0)
-                           + (e.time_range.end - e.time_range.start) * 1e-6)
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in dev_events)
+    for name, a, b in dev_events:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) * 1e-9
+    spans = sorted((a, b) for _, a, b in dev_events)
     if not spans:
         return wall, None, by_name
     busy, cur0, cur1 = 0.0, spans[0][0], spans[0][1]
@@ -680,7 +772,7 @@ def device_busy_share(fn):
         else:
             cur1 = max(cur1, b)
     busy += cur1 - cur0
-    return wall, busy * 1e-6, by_name
+    return wall, busy * 1e-9, by_name
 
 
 def stream_time_by_part(fn):
@@ -738,18 +830,18 @@ def stream_time_by_part(fn):
                          * 1e-3) for part, ev in marks.items()}
 
 
-def phase_fleet():
+def fleet_setup(wl, clients):
+    """Specs, config and round-0 cohort groups of a 200-client fleet
+    (capabilities from seed 0, E = 5, B = 8, lr 0.03, 30 % stragglers);
+    the selection groups must fall on both sides of the M = 256
+    cutover."""
     import numpy as np
-    import torch
 
     from repro_torch.fed.fleet import (FleetConfig, client_sizes,
-                                       make_cohort_groups, nominal_budgets,
-                                       run_fleet)
+                                       make_cohort_groups, nominal_budgets)
     from repro_torch.fed.simulator import (make_client_specs,
                                            straggler_deadline)
 
-    wl = cnn_fleet_workload()
-    clients = wl.make_clients()
     wl.validate_clients(clients)
     specs = make_client_specs(client_sizes(clients),
                               np.random.default_rng(0))
@@ -758,14 +850,53 @@ def phase_fleet():
     groups = make_cohort_groups(
         clients, list(range(len(clients))),
         nominal_budgets(specs, deadline, cfg.epochs), cfg)
-    log("  groups (M, k, C): " + ", ".join(
-        f"({g.valid.shape[1]}, {g.k}, {g.n_clients})" for g in groups))
     sel_m = [g.valid.shape[1] for g in groups if g.k > 0]
     check(any(m < cfg.materialize_below for m in sel_m)
           and any(m >= cfg.materialize_below for m in sel_m),
           f"no selection groups on both sides of M = "
           f"{cfg.materialize_below}: {sel_m}")
+    return specs, cfg, groups
 
+
+def log_groups(groups):
+    log("  groups (M, k, C): " + ", ".join(
+        f"({g.valid.shape[1]}, {g.k}, {g.n_clients})" for g in groups))
+
+
+def bare_and_profiled(one_round, top=8):
+    """One more round bare (the wall) and one under ``torch.profiler``
+    (the card's busy time; the profiler inflates the wall, so the idle
+    share is taken against the bare one).  Returns (bare wall s, busy s
+    or None, {device activity: s})."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_round()
+    torch.cuda.synchronize()
+    bare_wall = time.perf_counter() - t0
+    log(f"  one more round, bare: wall {bare_wall:.3f} s")
+    pwall, busy, by_name = device_busy_share(one_round)
+    if busy is None:
+        log("  device busy share: not measured (the profiler saw no "
+            "device activity)")
+        return bare_wall, None, by_name
+    log(f"  device busy (one more round under torch.profiler, wall "
+        f"{pwall:.3f} s): busy {busy:.3f} s; idle "
+        f"{100 * (1 - busy / bare_wall):.1f}% of the bare round's wall "
+        f"{bare_wall:.3f} s ({100 * (1 - busy / pwall):.1f}% of the "
+        f"profiled round's)")
+    log(f"  device time by activity, top {top}: " + "; ".join(
+        f"{name[:60]} {t:.3f} s ({100 * t / busy:.1f}%)"
+        for name, t in sorted(by_name.items(),
+                              key=lambda kv: -kv[1])[:top]))
+    return bare_wall, busy, by_name
+
+
+def fleet_main_run(wl, clients, specs, cfg, required):
+    """The fleet main path: 3 batched rounds with the launch counts set to
+    0 just before and read just after; every kernel of ``required`` must
+    have launched.  Returns (kept rounds, launch counts)."""
     out, kept, records, launches, wall = run_fleet_recorded(
         wl, clients, specs, cfg, 3, "batched")
     sel_s, round_s = report_fleet_rounds(records)
@@ -777,62 +908,57 @@ def phase_fleet():
         f"the wall of the rounds after the first; "
         f"{sum(len(m) for m, _ in kept)} coresets")
     log(f"  launches on the fleet path: {launches}")
-    check(all(launches[k] > 0 for k in FLEET_KERNELS),
-          f"a fleet kernel never launched on the fleet path: {launches}")
+    check(all(launches[k] > 0 for k in required),
+          f"a kernel never launched on the fleet path: {launches}")
     check(launches["pairwise_l2"] == 0,
           f"the fleet path launched the single-matrix pairwise kernel: "
           f"{launches}")
     check(all(h.n_coreset > 0 for h in out["history"]),
           "a fleet round built no coreset")
     check_params(out)
+    return kept, launches
+
+
+def phase_fleet():
+    from repro_torch.fed.fleet import run_fleet
+
+    wl = cnn_fleet_workload()
+    clients = wl.make_clients()
+    specs, cfg, groups = fleet_setup(wl, clients)
+    log_groups(groups)
+    kept, launches = fleet_main_run(wl, clients, specs, cfg, FLEET_KERNELS)
 
     # three more one-round runs, alike but for what watches them: bare
     # (the wall), with CUDA events around the selection's parts, and
-    # under torch.profiler (the card's busy time; the profiler inflates
-    # the wall, so the idle share is taken against the bare one)
+    # under torch.profiler
     def one_round():
         return run_fleet(wl, clients, specs, cfg, 1, straggler_pct=30.0)
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    one_round()
-    torch.cuda.synchronize()
-    bare_wall = time.perf_counter() - t0
-    log(f"  one more round, bare: wall {bare_wall:.3f} s")
+    bare_wall, _, _ = bare_and_profiled(one_round)
     ewall, parts = stream_time_by_part(one_round)
     log(f"  stream time by part (one more round with CUDA events, wall "
         f"{ewall:.3f} s): " + ", ".join(
             f"{part} {n} calls {t:.3f} s ({100 * t / bare_wall:.1f}% of "
             f"the bare round)" for part, (n, t) in parts.items()))
-    pwall, busy, by_name = device_busy_share(one_round)
-    if busy is None:
-        log("  device busy share: not measured (the profiler saw no "
-            "device activity)")
-    else:
-        log(f"  device busy (one more round under torch.profiler, wall "
-            f"{pwall:.3f} s): busy {busy:.3f} s; idle "
-            f"{100 * (1 - busy / bare_wall):.1f}% of the bare round's wall "
-            f"{bare_wall:.3f} s ({100 * (1 - busy / pwall):.1f}% of the "
-            f"profiled round's)")
-        log("  device time by activity, top 8: " + "; ".join(
-            f"{name[:60]} {t:.3f} s ({100 * t / busy:.1f}%)"
-            for name, t in sorted(by_name.items(),
-                                  key=lambda kv: -kv[1])[:8]))
     return wl, clients, specs, cfg, kept, launches
 
 
-def phase_fleet_ab(wl, clients, specs, cfg, kept):
+def phase_fleet_ab(wl, clients, specs, cfg, kept, params_atol, rounds):
+    """The plain-selection run of the first ``rounds`` rounds (medoids
+    equal, params bit-identical after every round) and one loop round
+    (medoids equal, params within ``params_atol``)."""
     import dataclasses
 
     import torch
 
     _, pkept, _, plaunches, pwall = run_fleet_recorded(
-        wl, clients, specs, dataclasses.replace(cfg, use_kernel=False), 3,
-        "batched")
-    log(f"  plain run: wall {pwall:.2f} s, launches {plaunches}")
-    check(all(n == 0 for n in plaunches.values()),
-          f"use_kernel=False launched a kernel: {plaunches}")
-    check(len(pkept) == len(kept), "the plain run ran another round count")
+        wl, clients, specs, dataclasses.replace(cfg, use_kernel=False),
+        rounds, "batched")
+    log(f"  plain run ({rounds} rounds): wall {pwall:.2f} s, launches "
+        f"{plaunches}")
+    check(all(plaunches[k] == 0 for k in SELECTION_KERNELS),
+          f"use_kernel=False launched a selection kernel: {plaunches}")
+    check(len(pkept) == rounds, "the plain run ran another round count")
     for r, ((km, kp), (pm, pp)) in enumerate(zip(kept, pkept)):
         check(set(km) == set(pm), f"round {r}: other clients selected")
         diff = [c for c in km if not (km[c] == pm[c]).all()]
@@ -841,7 +967,7 @@ def phase_fleet_ab(wl, clients, specs, cfg, kept):
         same = all(torch.equal(kp[k], pp[k]) for k in kp)
         check(same, f"round {r}: kernel and plain params are not "
               "bit-identical")
-    log(f"  {sum(len(m) for m, _ in kept)} coresets equal per (round, "
+    log(f"  {sum(len(m) for m, _ in pkept)} coresets equal per (round, "
         f"client); params bit-identical after every round")
 
     _, lkept, _, llaunches, lwall = run_fleet_recorded(
@@ -854,9 +980,96 @@ def phase_fleet_ab(wl, clients, specs, cfg, kept):
           f"for clients {diff}")
     max_diff = max(float((bp[k] - lp[k]).abs().max()) for k in bp)
     log(f"  loop vs batched, one round: {len(bm)} coresets equal, params "
-        f"max abs diff {max_diff:.3e} (PARAMS_ATOL {PARAMS_ATOL_CNN})")
-    check(max_diff <= PARAMS_ATOL_CNN,
+        f"max abs diff {max_diff:.3e} (PARAMS_ATOL {params_atol})")
+    check(max_diff <= params_atol,
           f"loop and batched params differ by {max_diff:.3e}")
+    return plaunches, llaunches
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: the translm fleet
+# ---------------------------------------------------------------------------
+
+def translm_fleet():
+    """The registry's ``translm`` workload over 200 char-LM clients at the
+    paper's Table-1 sizes (lognormal, mean 69, std 106); returns (workload,
+    clients, specs, config, round-0 groups)."""
+    from repro_torch.fed.fleet import get_workload
+
+    wl = get_workload("translm")
+    clients = wl.make_clients(n_clients=200, seed=0, mean_samples=69.0,
+                              std_samples=106.0)
+    return (wl, clients) + fleet_setup(wl, clients)
+
+
+def translm_attention_shapes(cfg, groups):
+    """(B, label, shape key) of the fleet's attention calls: the vmapped
+    SGD step of the largest group (C clients x B samples) and the feature
+    pass of the largest straggler (M samples)."""
+    c = max(g.n_clients for g in groups)
+    m = max(g.valid.shape[1] for g in groups if g.k > 0)
+    return [(c * cfg.batch_size, f"translm step, C={c}", "translm step"),
+            (m, f"translm features, M={m}", "translm features")]
+
+
+def phase_translm(wl, clients, specs, cfg, groups):
+    from repro_torch.fed.fleet import run_fleet
+
+    log_groups(groups)
+    kept, launches = fleet_main_run(wl, clients, specs, cfg,
+                                    FLEET_KERNELS + ("flash_attention",))
+
+    def one_round():
+        return run_fleet(wl, clients, specs, cfg, 1, straggler_pct=30.0)
+
+    _, busy, by_name = bare_and_profiled(one_round, top=10)
+    if busy is not None:
+        attn = sum(t for name, t in by_name.items()
+                   if "flash_attention" in name)
+        log(f"  flash-attention kernel: {attn:.4f} s of device time "
+            f"({100 * attn / busy:.1f}% of the busy time)")
+    return kept, launches
+
+
+def attention_kernel_vs_naive(wl, groups, dev):
+    """Phase 9 (c): at one batch (B = 8) of each client of the largest
+    group, on the initial params, the kernel path against
+    ``impl="naive"``: logits within 1e-4 and each parameter's gradient
+    (through the vmapped SGD step's ``vmap(grad(...))``) within
+    1e-5·max|g| of that parameter."""
+    import torch
+    from torch.func import grad, vmap
+
+    from repro_torch.fed.fleet.workloads import CharTransformer
+    from repro_torch.kernels import ops
+
+    g = max(groups, key=lambda gr: gr.n_clients)
+    batch = {f: torch.as_tensor(v[:, :8], device=dev)
+             for f, v in g.data.items()}
+    params = wl.init(torch.Generator().manual_seed(0), dev)
+    m = wl.model
+    res = {}
+    for uk in (True, False):
+        model = CharTransformer(vocab=m.vocab, d_model=m.cfg.d_model,
+                                n_heads=m.cfg.n_heads, d_ff=m.d_ff,
+                                use_kernel=uk)
+        ops.reset_launch_counts()
+        logits = model.logits(params, batch["x"].reshape(-1, 16))
+        grads = vmap(grad(lambda p, b: model.loss(p, b)[0]),
+                     in_dims=(None, 0))(params, batch)
+        torch.cuda.synchronize()
+        res[uk] = (logits, grads, ops.LAUNCHES["flash_attention"])
+    (lk, gk, nk), (ln, gn, nn) = res[True], res[False]
+    check(nk == 2 and nn == 0, f"kernel launches {nk} (kernel path) and "
+          f"{nn} (naive path); expected 2 and 0")
+    dlog = float((lk - ln).abs().max())
+    worst = max(float((gk[k] - gn[k]).abs().max())
+                / max(float(gn[k].abs().max()), 1e-30) for k in gn)
+    log(f"  (c) kernel vs naive attention at C={g.n_clients} x B=8: logits "
+        f"max abs diff {dlog:.3e} (limit 1e-4), gradients worst "
+        f"max|dg|/max|g| {worst:.3e} (limit 1e-5)")
+    check(dlog <= 1e-4, f"logits differ by {dlog:.3e}")
+    check(worst <= 1e-5, f"gradients differ by {worst:.3e} of max|g|")
 
 
 def main() -> int:
@@ -902,45 +1115,59 @@ def main() -> int:
     dev = torch.device("cuda")
 
     phases = {}
-    t = time.perf_counter()
-    log("== phase 2: kernels against their plain versions (rtol 1e-5, "
-        "atol 1e-5*max|plain|)")
-    kernels = phase_kernels(dev)
-    phases["kernels"] = time.perf_counter() - t
 
-    t = time.perf_counter()
-    log("== phase 3: main path, FedCore on SmallCNN (28x28, 16/32, "
-        "F=1568), 200 clients, 3 rounds x 10 clients, E=5")
-    clients, cfg, kout, kstrat, launches = phase_main_path()
-    phases["main_path"] = time.perf_counter() - t
+    @contextlib.contextmanager
+    def phase(key, title):
+        """Log the phase's title with the seconds so far; record its
+        seconds under ``key``."""
+        log(f"[{time.perf_counter() - t_start:.0f} s] == phase {title}")
+        t = time.perf_counter()
+        yield
+        phases[key] = time.perf_counter() - t
 
-    t = time.perf_counter()
-    log("== phase 4: the same run with use_kernel=False")
-    phase_plain_ab(clients, cfg, kout, kstrat)
-    phases["plain_ab"] = time.perf_counter() - t
-
-    t = time.perf_counter()
-    log("== phase 5: the other paper models")
-    phase_other_models()
-    phases["other_models"] = time.perf_counter() - t
-
-    t = time.perf_counter()
-    log("== phase 6: fleet main path, run_fleet(engine='batched') on "
-        "SmallCNN (28x28, 16/32, F=1568), 200 clients, every client every "
-        "round, 3 rounds, E=5")
-    wl, fclients, fspecs, fcfg, fkept, flaunches = phase_fleet()
-    phases["fleet"] = time.perf_counter() - t
-
-    t = time.perf_counter()
-    log("== phase 7: fleet A/Bs, use_kernel=False and engine='loop'")
-    phase_fleet_ab(wl, fclients, fspecs, fcfg, fkept)
-    phases["fleet_ab"] = time.perf_counter() - t
+    with phase("kernels", "2: kernels against their plain versions (rtol "
+               "1e-5, atol 1e-5*max|plain|)"):
+        twl, tclients, tspecs, tcfg, tgroups = translm_fleet()
+        kernels = phase_kernels(dev, translm_attention_shapes(tcfg, tgroups))
+    with phase("main_path", "3: main path, FedCore on SmallCNN (28x28, "
+               "16/32, F=1568), 200 clients, 3 rounds x 10 clients, E=5"):
+        clients, cfg, kout, kstrat, launches = phase_main_path()
+    with phase("plain_ab", "4: the same run with use_kernel=False"):
+        phase_plain_ab(clients, cfg, kout, kstrat)
+    with phase("other_models", "5: the other paper models"):
+        phase_other_models()
+    with phase("fleet", "6: fleet main path, run_fleet(engine='batched') "
+               "on SmallCNN (28x28, 16/32, F=1568), 200 clients, every "
+               "client every round, 3 rounds, E=5"):
+        wl, fclients, fspecs, fcfg, fkept, flaunches = phase_fleet()
+    with phase("fleet_ab", "7: fleet A/Bs, use_kernel=False (one round) "
+               "and engine='loop'"):
+        # one plain round: the CNN's A/B held for 3 rounds in earlier
+        # runs, and the script's time now goes to the translm phases
+        phase_fleet_ab(wl, fclients, fspecs, fcfg, fkept, PARAMS_ATOL_CNN,
+                       1)
+    with phase("translm", "8: translm fleet, run_fleet(engine='batched') "
+               "on CharTransformer (d_model 32, 2 heads of 16, d_ff 64, "
+               "S=16), 200 clients, every client every round, 3 rounds, "
+               "E=5"):
+        tkept, tlaunches = phase_translm(twl, tclients, tspecs, tcfg,
+                                         tgroups)
+    with phase("translm_ab", "9: translm A/Bs, (a) use_kernel=False, (b) "
+               "engine='loop', (c) the attention kernel against naive "
+               "attention"):
+        plaunches, _ = phase_fleet_ab(twl, tclients, tspecs, tcfg, tkept,
+                                      PARAMS_ATOL_TRANSLM, len(tkept))
+        check(plaunches["flash_attention"] > 0,
+              "the plain-selection run did not launch the attention "
+              "kernel")
+        attention_kernel_vs_naive(twl, tgroups, dev)
 
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                       phases.items())
         + f"; total {time.perf_counter() - t_start:.1f}")
     line = {"kernels": []}
-    by_path = {"sync": launches, "fleet": flaunches}
+    by_path = {"sync": launches, "fleet": flaunches,
+               "fleet_translm": tlaunches}
     for name, (source, replaces) in KERNEL_META.items():
         k = kernels[name]
         line["kernels"].append({

@@ -20,22 +20,35 @@ Registry, sized for small fleets as in the JAX package:
   * ``cnn``    — ``SmallCNN`` on 14x14 pseudo-MNIST images
                  (last-layer-gradient features).
   * ``charlm`` — ``CharLSTM`` on the Shakespeare-style char-LM task.
+  * ``translm`` — ``CharTransformer`` (one pre-norm decoder block of
+                 ``repro_torch.models.attention``; its tri-state
+                 ``use_kernel`` routes attention through the CUDA
+                 flash-attention kernel) on the same char-LM data.
 
-The JAX package's ``xlstm`` and ``translm`` workloads are not ported yet;
-``get_workload`` names the ROADMAP slice that brings each.
+The JAX package's ``xlstm`` workload is not ported yet; ``get_workload``
+names the ROADMAP slice that brings it.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
+import torch
+from torch import nn
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.data import (mnist_like_dataset, shakespeare_like_dataset,
                               synthetic_dataset)
 from repro_torch.data.charlm import VOCAB
 from repro_torch.device import DeviceLike
-from repro_torch.models.small import CharLSTM, LogisticRegression, SmallCNN
+from repro_torch.kernels.ops import resolve_use_kernel
+from repro_torch.models.attention import init_attention, multihead_attention
+from repro_torch.models.layers import (dense_init, init_mlp, init_rmsnorm,
+                                       mlp, rmsnorm)
+from repro_torch.models.small import (CharLSTM, FLModule, LogisticRegression,
+                                      SmallCNN, token_accuracy)
 
 ClientData = Dict[str, np.ndarray]
 
@@ -124,6 +137,92 @@ class FleetWorkload:
 
 
 # ---------------------------------------------------------------------------
+# transformer char-LM: one pre-norm decoder block over the flash kernel
+# ---------------------------------------------------------------------------
+
+class _Leaves(nn.Module):
+    """One level of the JAX parameter tree: named leaves of given shapes
+    (their values come from the params each call is given)."""
+
+    def __init__(self, **shapes):
+        super().__init__()
+        for name, shape in shapes.items():
+            setattr(self, name, nn.Parameter(torch.zeros(shape),
+                                             requires_grad=False))
+
+    def tree(self) -> Dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in self._parameters}
+
+
+class CharTransformer(FLModule):
+    """Char-LM of one pre-norm decoder block: causal multi-head
+    self-attention with RoPE, then a SwiGLU MLP, each around RMSNorm, and
+    a char head; the JAX package's ``CharTransformer``, with its
+    parameter tree's paths as keys (``attn.wq``, ``mlp.w_gate``,
+    ``norm_out.scale``, ...).
+
+    ``use_kernel`` is the JAX package's tri-state, resolved by the
+    tokens' device: true runs attention through
+    ``repro_torch.kernels.ops.flash_attention`` (the CUDA kernel, impl
+    ``"kernel"``), false through the naive attention; ``None`` picks the
+    kernel on the card and the naive attention on the CPU; ``True`` on
+    CPU tokens raises."""
+
+    def __init__(self, vocab: int = 64, d_model: int = 32, n_heads: int = 2,
+                 d_ff: int = 64, use_kernel: Optional[bool] = None):
+        super().__init__()
+        self.vocab, self.d_ff, self.use_kernel = vocab, d_ff, use_kernel
+        self.cfg = ModelConfig(arch_id="char_translm", family="transformer",
+                               d_model=d_model, n_heads=n_heads,
+                               n_kv_heads=n_heads, vocab_size=vocab)
+        d, hd = d_model, self.cfg.d_head
+        self.embed = self._param(vocab, d)
+        self.norm_attn = _Leaves(scale=(d,))
+        self.attn = _Leaves(wq=(d, n_heads * hd), wk=(d, n_heads * hd),
+                            wv=(d, n_heads * hd), wo=(n_heads * hd, d))
+        self.norm_mlp = _Leaves(scale=(d,))
+        self.mlp = _Leaves(w_gate=(d, d_ff), w_up=(d, d_ff),
+                           w_down=(d_ff, d))
+        self.norm_out = _Leaves(scale=(d,))
+        self.w_out = self._param(d, vocab)
+        self.b_out = self._param(vocab)
+
+    def _init_cpu(self, generator):
+        d = self.cfg.d_model
+        params = {"embed": torch.randn((self.vocab, d),
+                                       generator=generator) * 0.1}
+        for group, leaves in (
+                ("norm_attn", init_rmsnorm(d)),
+                ("attn", init_attention(generator, self.cfg)),
+                ("norm_mlp", init_rmsnorm(d)),
+                ("mlp", init_mlp(generator, self.cfg, d_ff=self.d_ff)),
+                ("norm_out", init_rmsnorm(d))):
+            params.update({f"{group}.{k}": v for k, v in leaves.items()})
+        params["w_out"] = dense_init(generator, d, self.vocab)
+        params["b_out"] = torch.zeros((self.vocab,))
+        return params
+
+    def impl(self, tokens: torch.Tensor) -> str:
+        """The attention implementation for ``tokens``' device."""
+        return ("kernel" if resolve_use_kernel(self.use_kernel, tokens.device)
+                else "naive")
+
+    def forward(self, tokens):
+        cfg = self.cfg
+        x = self.embed[tokens.long()]                   # (B, S, d)
+        x = x + multihead_attention(
+            self.attn.tree(), cfg, rmsnorm(self.norm_attn.tree(), x),
+            causal=True, impl=self.impl(tokens))
+        x = x + mlp(self.mlp.tree(), rmsnorm(self.norm_mlp.tree(), x),
+                    act=cfg.act)
+        x = rmsnorm(self.norm_out.tree(), x)
+        return x @ self.w_out + self.b_out
+
+    def accuracy(self, params, batch):
+        return token_accuracy(self.logits(params, batch["x"]), batch["y"])
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -172,36 +271,48 @@ def _cnn_workload() -> FleetWorkload:
 _CHARLM_SEQ_LEN = 16
 
 
-def _charlm_workload() -> FleetWorkload:
-    def make_clients(n_clients: int = 64, seed: int = 0,
-                     mean_samples: float = 40.0, std_samples: float = 24.0
-                     ) -> List[ClientData]:
-        return shakespeare_like_dataset(n_clients=n_clients,
-                                        mean_samples=mean_samples,
-                                        std_samples=std_samples,
-                                        seq_len=_CHARLM_SEQ_LEN, seed=seed)
+def _charlm_clients(n_clients: int = 64, seed: int = 0,
+                    mean_samples: float = 40.0, std_samples: float = 24.0
+                    ) -> List[ClientData]:
+    return shakespeare_like_dataset(n_clients=n_clients,
+                                    mean_samples=mean_samples,
+                                    std_samples=std_samples,
+                                    seq_len=_CHARLM_SEQ_LEN, seed=seed)
 
+
+def _charlm_workload() -> FleetWorkload:
     return FleetWorkload(
         name="charlm",
         model=CharLSTM(vocab=VOCAB, d_embed=8, d_hidden=32, n_layers=1),
         schema={"x": ArraySpec((_CHARLM_SEQ_LEN,), "int32"),
                 "y": ArraySpec((_CHARLM_SEQ_LEN,), "int32")},
-        make_clients=make_clients,
+        make_clients=_charlm_clients,
         description="CharLSTM next-character prediction on the "
                     "Shakespeare-style char-LM task")
+
+
+def _translm_workload() -> FleetWorkload:
+    return FleetWorkload(
+        name="translm",
+        model=CharTransformer(vocab=VOCAB, d_model=32, n_heads=2),
+        schema={"x": ArraySpec((_CHARLM_SEQ_LEN,), "int32"),
+                "y": ArraySpec((_CHARLM_SEQ_LEN,), "int32")},
+        make_clients=_charlm_clients,
+        description="one-block pre-norm decoder transformer char-LM "
+                    "(flash-attention kernel on the card) on the same "
+                    "sequence data as charlm")
 
 
 WORKLOADS: Dict[str, Callable[[], FleetWorkload]] = {
     "mlp": _mlp_workload,
     "cnn": _cnn_workload,
     "charlm": _charlm_workload,
+    "translm": _translm_workload,
 }
 
 # the JAX package's other workloads, and the ROADMAP slice that ports each
 NOT_PORTED = {
     "xlstm": "slice 2b (models/xlstm.py's mLSTM block)",
-    "translm": "slice 4 (models/attention.py and the flash-attention "
-               "kernel)",
 }
 
 

@@ -27,7 +27,7 @@ BUILD_DIR = ROOT / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (source, C entry point, argtypes); every entry point
 # returns cudaGetLastError() as an int
 KERNELS = {
@@ -45,6 +45,8 @@ KERNELS = {
     "delta_sweep_from_feats": ("kmedoids_from_feats.cu",
                                "fedcore_delta_sweep_from_feats",
                                [_P] * 8 + [_I] * 4 + [_P]),
+    "flash_attention": ("flash_attention.cu", "fedcore_flash_attention",
+                        [_P] * 4 + [_I] * 8 + [_F] + [_P]),
 }
 
 _LOADED: Dict[str, object] = {}

@@ -1,4 +1,4 @@
-"""Public wrappers around the selection kernels.
+"""Public wrappers around the kernels.
 
 Each wrapper takes its plain PyTorch version (``kernels/ref.py``) for a
 tensor that lies on the CPU, and launches its hand-written CUDA kernel
@@ -14,6 +14,7 @@ kernel), so a run can show that the main path went through the kernels.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional
 
 import torch
@@ -23,7 +24,8 @@ from repro_torch.kernels import ref
 LAUNCHES: Dict[str, int] = {"pairwise_l2": 0, "build_cost": 0,
                             "delta_sweep": 0, "pairwise_l2_batched": 0,
                             "build_cost_from_feats": 0,
-                            "delta_sweep_from_feats": 0}
+                            "delta_sweep_from_feats": 0,
+                            "flash_attention": 0}
 
 
 def reset_launch_counts() -> None:
@@ -214,3 +216,141 @@ def kmedoids_delta_sweep_from_feats(x: torch.Tensor, d1: torch.Tensor,
                 sq.data_ptr(), d1.data_ptr(), d2.data_ptr(), vf.data_ptr(),
                 n_onehot.data_ptr(), A.data_ptr(), B.data_ptr(), c, m, f, k)
     return A, B
+
+
+# ---------------------------------------------------------------------------
+# flash attention: one autograd.Function for every call
+# ---------------------------------------------------------------------------
+
+def _flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool,
+                            window: Optional[int],
+                            scale: float) -> torch.Tensor:
+    """Launch ``csrc/flash_attention.cu`` on q/k/v on the card."""
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("flash_attention: expected q (B, Hq, S, hd) and "
+                         "k/v (B, Hk, S, hd)")
+    b, hq, s, hd = q.shape
+    hk = k.shape[1]
+    if tuple(k.shape) != (b, hk, s, hd) or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} do not fit q {tuple(q.shape)}")
+    if hk < 1 or hq % hk:
+        raise ValueError(f"flash_attention: {hq} q heads are no multiple "
+                         f"of {hk} kv heads")
+    if not 1 <= hd <= 128:
+        raise ValueError(f"flash_attention: head dim {hd} outside 1..128")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: q, k and v must all be float32 "
+                        f"or all bfloat16, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v lie on different "
+                         "devices")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if out.numel():
+        _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), b, hq, hk, s, hd, int(causal),
+                int(window or 0), int(q.dtype == torch.bfloat16),
+                ctypes.c_float(scale))
+    return out
+
+
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor, *,
+                             causal: bool, window: Optional[int],
+                             scale: float):
+    """(dq, dk, dv) of ``flash_attention`` for the output gradient ``do``,
+    in PyTorch tensor ops: recompute P = softmax(scale·QKᵀ, masked), then
+    dV = Pᵀ·dO, dP = dO·Vᵀ, dS = P ∘ (dP − rowsum(P ∘ dP)),
+    dQ = scale·dS·K and dK = scale·dSᵀ·Q, with GQA's kv-head gradients
+    summed over the q heads that share them.  The matrix products go to
+    ``torch.matmul``, as the JAX package leaves the gradient to XLA."""
+    b, hq, s, hd = q.shape
+    hk = k.shape[1]
+    g = hq // hk
+    qf, dof = q.float(), do.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    sc = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    ok = ref.attention_mask(s, causal, window, q.device)
+    p = torch.softmax(torch.where(ok, sc, ref.NEG_INF), dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    ds = p * (dp - torch.sum(p * dp, dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dk = dk.reshape(b, hk, g, s, hd).sum(dim=2)
+    dv = dv.reshape(b, hk, g, s, hd).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention as one autograd.Function on every device.
+
+    ``forward`` runs the plain version (``ref.flash_attention_ref``) or,
+    with ``use_kernel``, the CUDA kernel.  ``backward`` is PyTorch tensor
+    ops (``flash_attention_backward``): the JAX package's Pallas kernel
+    defines no VJP, and ``jax.grad`` through its ``pallas_call`` fails, so
+    the JAX package trains only through its naive attention, which XLA
+    differentiates.  ``vmap`` folds the vmapped axis into B and applies
+    the Function again, so under ``torch.func.vmap`` (the fleet engine's
+    vmapped SGD step) the forward sees tensors with storage, which a
+    kernel launch needs, and launches once for the whole batch."""
+
+    @staticmethod
+    def forward(q, k, v, causal, window, scale, use_kernel):
+        if use_kernel:
+            return _flash_attention_kernel(q, k, v, causal, window, scale)
+        return ref.flash_attention_ref(q, k, v, causal=causal,
+                                       window=window, scale=scale)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal, window, scale, _ = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(
+            q, k, v, do, causal=ctx.causal, window=ctx.window,
+            scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal, window, scale, use_kernel):
+        n = info.batch_size
+
+        def fold(t, dim):
+            t = (t.expand((n,) + t.shape) if dim is None
+                 else t.movedim(dim, 0))
+            return t.reshape((n * t.shape[1],) + t.shape[2:])
+
+        out = _FlashAttention.apply(fold(q, in_dims[0]), fold(k, in_dims[1]),
+                                    fold(v, in_dims[2]), causal, window,
+                                    scale, use_kernel)
+        return out.reshape((n, -1) + out.shape[1:]), 0
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    scale: Optional[float] = None,
+                    use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """q (B, Hq, S, hd), k/v (B, Hk, S, hd) -> (B, Hq, S, hd) in q's dtype.
+
+    Causal (or, with ``causal=False``, full) attention with an optional
+    sliding ``window`` (key k visible to query q when k > q − window),
+    ``scale`` = 1/sqrt(hd) by default, GQA by kv head = q head //
+    (Hq / Hk).  fp32 or bf16, accumulated in fp32.  Differentiable,
+    under ``torch.func`` transforms too; the gradient is PyTorch ops
+    (see ``_FlashAttention``)."""
+    hd = q.shape[-1]
+    scale = float(scale if scale is not None else 1.0 / (hd ** 0.5))
+    uk = resolve_use_kernel(use_kernel, q.device)
+    return _FlashAttention.apply(q, k, v, causal, window, scale, uk)

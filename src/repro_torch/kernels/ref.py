@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the selection kernels (the correctness contract).
+"""Plain PyTorch versions of the kernels (the correctness contract).
 
 Each function is the mathematical definition its CUDA kernel in
 ``csrc/`` must reproduce, as the JAX package's ``kernels/ref.py`` defines
@@ -19,6 +19,11 @@ from typing import Optional
 import torch
 
 BIG = 1e30      # padded-candidate mask (``repro_torch.core.kmedoids.BIG``)
+NEG_INF = -1e30     # attention mask score, as in the JAX kernel
+# keys per kv tile of the flash-attention kernel (``kBK`` in
+# ``csrc/flash_attention.cu``): the online softmax updates once per tile,
+# so the plain version must tile the keys alike to give the kernel's bits
+FLASH_BLOCK_K = 64
 
 
 def pairwise_l2_ref(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
@@ -134,3 +139,69 @@ def kmedoids_delta_sweep_from_feats_ref(x: torch.Tensor, d1: torch.Tensor,
     A, B = kmedoids_delta_sweep_ref(_pairwise_from_feats(x), d1, d2, vf,
                                     n_onehot)
     return torch.where(vf > 0.0, A, BIG), B
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+def attention_mask(s: int, causal: bool, window: Optional[int],
+                   device=None) -> torch.Tensor:
+    """(S, S) bool: may query q see key k?  Causal: k <= q; window:
+    k > q - window."""
+    qp = torch.arange(s, device=device)[:, None]
+    kp = torch.arange(s, device=device)[None, :]
+    ok = torch.ones((s, s), dtype=torch.bool, device=device)
+    if causal:
+        ok = ok & (kp <= qp)
+    if window is not None:
+        ok = ok & (kp > qp - window)
+    return ok
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """q (B, Hq, S, hd); k/v (B, Hk, S, hd) -> (B, Hq, S, hd) in q's dtype.
+
+    Causal (or full) attention with an optional sliding window, GQA by
+    kv head = q head // (Hq / Hk), computed in float32 as the kernel
+    computes it: an online softmax over kv tiles of ``FLASH_BLOCK_K``
+    keys with running (m, l, acc); each score a sum over hd in order,
+    times ``scale``; masked scores at -1e30; per tile
+    m' = max(m, max_j s_j), p_j = exp(s_j − m'), corr = exp(m − m'),
+    l' = l·corr + p_0 + p_1 + …, acc' = acc·corr + p_0·v_0 + p_1·v_1 + …
+    (left to right); one division acc / max(l, 1e-30) at the end.  The
+    kernel skips the tiles that no query of its block can see; here every
+    tile runs for every query, which changes no bit: a tile a query cannot
+    see adds exact zeros once the query has seen a key, and what it adds
+    before that is wiped by corr = 0 at the query's first visible key
+    (its own position, always visible)."""
+    b, hq, s, hd = q.shape
+    hk = k.shape[1]
+    scale = float(scale if scale is not None else 1.0 / (hd ** 0.5))
+    heads = torch.arange(hq, device=q.device) // (hq // hk)
+    qf = q.float()
+    kf = k.float()[:, heads]
+    vf = v.float()[:, heads]
+    ok = attention_mask(s, causal, window, q.device)
+    m = torch.full((b, hq, s), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, s), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hq, s, hd), dtype=torch.float32, device=q.device)
+    for k0 in range(0, s, FLASH_BLOCK_K):
+        n = min(FLASH_BLOCK_K, s - k0)
+        kt, vt = kf[:, :, k0:k0 + n], vf[:, :, k0:k0 + n]
+        sc = torch.zeros((b, hq, s, n), dtype=torch.float32, device=q.device)
+        for d in range(hd):
+            sc = sc + qf[..., :, d, None] * kt[..., None, :, d]
+        sc = torch.where(ok[:, k0:k0 + n], sc * scale, NEG_INF)
+        m_new = torch.maximum(m, torch.amax(sc, dim=-1))
+        p = torch.exp(sc - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr
+        acc = acc * corr[..., None]
+        for j in range(n):
+            l = l + p[..., j]
+            acc = acc + p[..., j, None] * vt[..., j, None, :]
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)

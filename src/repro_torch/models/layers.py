@@ -1,9 +1,27 @@
-"""Initialisers shared by the port's models."""
+"""Building blocks shared by the port's models, as the JAX package's
+``models/layers.py`` defines them: initialisers, RMSNorm, rotary
+position embeddings and the feed-forward block.
+
+Parameters are plain dicts of tensors, as in the JAX package; dense
+kernels are (d_in, d_out) and multiply as ``x @ W``.  RMSNorm stays plain
+PyTorch, as the JAX package keeps it plain jnp on every model path.
+"""
 from __future__ import annotations
+
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from repro_torch.configs.base import ModelConfig
+
+Params = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
 
 def dense_init(generator: torch.Generator, d_in: int, d_out: int,
                scale: float | None = None) -> torch.Tensor:
@@ -12,3 +30,72 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
     return torch.randn((d_in, d_out), generator=generator,
                        dtype=torch.float32) * scale
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(d: int) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32)}
+
+
+def rmsnorm(params: Params, x: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x·rsqrt(mean(x²) + eps)·scale, in float32, back in x's dtype."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"]).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, d_head); positions: (..., S) integers.  Rotates the
+    two halves of each head, as the JAX package does."""
+    d_head = x.shape[-1]
+    freqs = rope_freqs(d_head, theta, x.device)              # (d_head/2,)
+    angles = positions[..., None].float() * freqs            # (..., S, d/2)
+    cos = torch.cos(angles)[..., None, :]                    # (..., S, 1, d/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP / SwiGLU
+# ---------------------------------------------------------------------------
+
+def init_mlp(generator: torch.Generator, cfg: ModelConfig,
+             d_ff: int | None = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.act == "silu":
+        return {"w_gate": dense_init(generator, d, f),
+                "w_up": dense_init(generator, d, f),
+                "w_down": dense_init(generator, f, d)}
+    return {"w_up": dense_init(generator, d, f),
+            "w_down": dense_init(generator, f, d)}
+
+
+def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """SwiGLU (``act="silu"``) or a plain GELU MLP; GELU is the tanh
+    approximation, ``jax.nn.gelu``'s default."""
+    if act == "silu":
+        g = F.silu(x @ params["w_gate"])
+        u = x @ params["w_up"]
+        return (g * u) @ params["w_down"]
+    h = F.gelu(x @ params["w_up"], approximate="tanh")
+    return h @ params["w_down"]

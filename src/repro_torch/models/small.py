@@ -57,6 +57,13 @@ def _weighted_ce(logits, labels, weights=None):
     return total, per_example
 
 
+def token_accuracy(logits, labels):
+    """Share of the valid (non-``IGNORE``) positions predicted right."""
+    valid = labels != IGNORE
+    correct = (torch.argmax(logits, -1) == labels) & valid
+    return torch.sum(correct) / torch.clamp_min(torch.sum(valid), 1)
+
+
 def _last_layer_grad_feature(logits, labels, w_out):
     """FedCore §4.3 DNN proxy: dL/dz = (softmax(logits) - onehot(y)) W_outᵀ.
 
@@ -254,7 +261,4 @@ class CharLSTM(FLModule):
         return self.hidden(tokens) @ self.w_out + self.b_out
 
     def accuracy(self, params, batch):
-        logits = self.logits(params, batch["x"])
-        valid = batch["y"] != IGNORE
-        correct = (torch.argmax(logits, -1) == batch["y"]) & valid
-        return torch.sum(correct) / torch.clamp_min(torch.sum(valid), 1)
+        return token_accuracy(self.logits(params, batch["x"]), batch["y"])

@@ -172,3 +172,70 @@ def test_short_fleet_run_goes_through_the_fleet_kernels(cuda):
         assert ops.LAUNCHES[name] > 0, ops.LAUNCHES
     assert all(bool(torch.isfinite(v).all()) for v in out["params"].values())
     assert all(v.device.type == "cuda" for v in out["params"].values())
+
+
+# ---------------------------------------------------------------------------
+# kernel 7: flash attention, its gradient under vmap, and a translm fleet
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,hq,hk,s,hd,window,dtype", [
+    (2, 4, 2, 128, 64, None, torch.float32),
+    (2, 8, 1, 128, 64, None, torch.float32),
+    (1, 4, 2, 128, 64, 48, torch.float32),
+    (1, 2, 2, 64, 128, None, torch.float32),
+    (1, 2, 2, 128, 64, None, torch.bfloat16),
+    (3, 2, 2, 40, 16, None, torch.float32),
+    (2, 4, 2, 100, 32, 16, torch.bfloat16)])
+def test_flash_attention_kernel_matches_plain(cuda, b, hq, hk, s, hd,
+                                              window, dtype):
+    g = torch.Generator(device="cpu").manual_seed(b * s + hd)
+    q = torch.randn(b, hq, s, hd, generator=g).to(cuda, dtype)
+    k = torch.randn(b, hk, s, hd, generator=g).to(cuda, dtype)
+    v = torch.randn(b, hk, s, hd, generator=g).to(cuda, dtype)
+    for causal in (True, False):
+        ops.reset_launch_counts()
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == 1
+        _same(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                           window=window))
+
+
+def test_vmap_of_grad_launches_the_kernel_once_per_step(cuda):
+    """The fleet engine's vmapped SGD step: one launch for all clients,
+    and each client's gradient equal to its own through the plain
+    forward (the backward is the same tensor ops)."""
+    from torch.func import grad, vmap
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    q = torch.randn(5, 8, 2, 16, 16, generator=g).to(cuda)
+
+    def loss(q, use_kernel):
+        return torch.sum(ops.flash_attention(q, q, q, use_kernel=use_kernel)
+                         ** 2)
+
+    ops.reset_launch_counts()
+    got = vmap(grad(loss), in_dims=(0, None))(q, None)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == 1
+    want = vmap(grad(loss), in_dims=(0, None))(q, False)
+    _same(got, want)
+
+
+def test_short_translm_fleet_goes_through_the_attention_kernel(cuda):
+    from repro_torch.fed.fleet import FleetConfig, get_workload, run_fleet
+    from repro_torch.fed.simulator import make_client_specs
+
+    wl = get_workload("translm")
+    clients = wl.make_clients(n_clients=16, seed=0, mean_samples=60.0,
+                              std_samples=40.0)
+    specs = make_client_specs([len(d["y"]) for d in clients],
+                              np.random.default_rng(0))
+    ops.reset_launch_counts()
+    out = run_fleet(wl, clients, specs, FleetConfig(epochs=2, batch_size=8,
+                                                    lr=0.05), 1,
+                    straggler_pct=50.0)
+    assert out["history"][0].n_coreset > 0
+    assert ops.LAUNCHES["flash_attention"] > 0, ops.LAUNCHES
+    assert all(bool(torch.isfinite(v).all()) for v in out["params"].values())
+    assert all(v.device.type == "cuda" for v in out["params"].values())

@@ -255,14 +255,13 @@ def test_not_ported_arguments_raise():
         run(engine="async")
     with pytest.raises(NotImplementedError, match="slice 2b"):
         get_workload("xlstm")
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        get_workload("translm")
+    assert get_workload("translm").name == "translm"
     with pytest.raises(ValueError, match="unknown fleet workload"):
         get_workload("resnet")
 
 
 def test_workload_schema_and_client_bytes_equal_reference():
-    for name in ("mlp", "cnn", "charlm"):
+    for name in ("mlp", "cnn", "charlm", "translm"):
         jwl, wl = jw.get_workload(name), get_workload(name)
         assert {k: (s.shape, s.dtype) for k, s in wl.schema.items()} == \
             {k: (s.shape, s.dtype) for k, s in jwl.schema.items()}

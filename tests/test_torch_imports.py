@@ -33,7 +33,8 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 
 def test_importing_the_runtime_loads_no_jax():
     code = ("import sys, repro_torch.fed.server, repro_torch.kernels.ops, "
-            "repro_torch.convert, repro_torch.fed.fleet; "
+            "repro_torch.convert, repro_torch.fed.fleet, "
+            "repro_torch.models.attention, repro_torch.configs; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad; print('ok')")

@@ -84,9 +84,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     ops.kmedoids_build_cost_from_feats(xb, D[:, 0], torch.ones(1, 9))
     ops.kmedoids_delta_sweep_from_feats(xb, D[:, 0], D[:, 1],
                                         torch.ones(1, 9), torch.ones(1, 9, 2))
+    q = x.reshape(1, 1, 9, 5)
+    ops.flash_attention(q, q, q)
     assert ops.LAUNCHES == dict.fromkeys(
         ("pairwise_l2", "build_cost", "delta_sweep", "pairwise_l2_batched",
-         "build_cost_from_feats", "delta_sweep_from_feats"), 0)
+         "build_cost_from_feats", "delta_sweep_from_feats",
+         "flash_attention"), 0)
 
 
 def test_use_kernel_true_on_a_cpu_tensor_raises():
