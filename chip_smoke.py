@@ -58,7 +58,10 @@ phases run in order and any failure exits non-zero:
    to 0 just before and read just after, and the attention kernel and the
    fleet's selection kernels must each have launched; round walls, wall
    by span, and one more round bare and one under ``torch.profiler``
-   (idle share, device time by activity);
+   (idle share, device time by activity); then single vmapped SGD steps
+   of the largest straggler group and of the group with the most
+   clients, timed bare and under a host and device profile (ATen calls,
+   kernel launches, device busy time and host time by op, per step);
 9. the ``translm`` A/Bs: (a) the same 3 rounds with ``use_kernel=False``
    (selection on the plain versions) pick the same medoids per (round,
    client) and end every round on bit-identical parameters; (b) one round
@@ -1013,6 +1016,8 @@ def translm_attention_shapes(cfg, groups):
 
 
 def phase_translm(wl, clients, specs, cfg, groups):
+    import torch
+
     from repro_torch.fed.fleet import run_fleet
 
     log_groups(groups)
@@ -1028,7 +1033,90 @@ def phase_translm(wl, clients, specs, cfg, groups):
                    if "flash_attention" in name)
         log(f"  flash-attention kernel: {attn:.4f} s of device time "
             f"({100 * attn / busy:.1f}% of the busy time)")
+    step_host_breakdown(wl, cfg, groups, torch.device("cuda"))
     return kept, launches
+
+
+def step_host_breakdown(wl, cfg, groups, dev, n_steps=30, n_prof=5):
+    """Where a vmapped SGD step of the translm fleet spends its wall: for
+    the straggler group with the most samples and the group with the most
+    clients, the wall per step over ``n_steps`` steps (perf_counter,
+    synchronised at both ends), then ``n_prof`` steps under
+    ``torch.profiler`` (host and device): ATen calls, kernel launches and
+    device busy time per step, and the ATen ops with the most host self
+    time.  Also counts the vmap fallback's warnings over one step (an op
+    without a batching rule runs once per client)."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.fed.fleet.batched import FleetEngine
+
+    eng = FleetEngine(wl.model, cfg, device=dev)
+    params = wl.init(torch.Generator().manual_seed(0), dev)
+    picks = {"straggler, most samples": max(
+                 (g for g in groups if g.k > 0),
+                 key=lambda g: g.valid.shape[1]),
+             "most clients": max(groups, key=lambda g: g.n_clients)}
+    for what, g in picks.items():
+        c = g.n_clients
+        data = {f: torch.as_tensor(v, device=dev) for f, v in g.data.items()}
+        w = torch.as_tensor(g.valid.astype("float32"), device=dev)
+        idx = eng._batch_indices(g, slice(None))
+        n_t = idx.shape[1]
+        p = {k: v.expand((c,) + v.shape) for k, v in params.items()}
+
+        def steps(n, p=p, data=data, w=w, idx=idx, n_t=n_t):
+            for t in range(n):
+                p, _ = eng._vm_sgd_step(p, data, w, idx[:, t % n_t])
+            return p
+
+        steps(3)
+        torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            steps(1)
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+        fallbacks = [str(x.message) for x in caught
+                     if "batching rule" in str(x.message)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps(n_steps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / n_steps * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            steps(n_prof)
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        aten = [e for e in events if e.key.startswith("aten::")]
+        n_aten = sum(e.count for e in aten) / n_prof
+        n_launch = sum(e.count for e in events
+                       if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                    "cudaLaunchKernelExC",
+                                    "cuLaunchKernelEx")) / n_prof
+        host_self = sum(e.self_cpu_time_total for e in events
+                        if e.device_type == DeviceType.CPU) / n_prof / 1e3
+        dev_busy = sum(e.self_device_time_total for e in events
+                       if e.device_type == DeviceType.CUDA) / n_prof / 1e3
+        launch_ms = sum(e.self_cpu_time_total for e in events
+                        if e.key.startswith(("cudaLaunch", "cuLaunch"))
+                        ) / n_prof / 1e3
+        log(f"  one vmapped SGD step, {what} (M={g.valid.shape[1]}, "
+            f"C={c}): wall {ms:.3f} ms a step over {n_steps} steps; under "
+            f"the profiler, a step makes {n_aten:.0f} ATen calls (nested "
+            f"ones counted) and {n_launch:.0f} kernel launches "
+            f"({launch_ms:.3f} ms of host time in the launch calls), "
+            f"host self time of the recorded events {host_self:.3f} ms, "
+            f"device busy {dev_busy:.3f} ms; vmap fallback warnings in one "
+            f"step: {len(fallbacks)}"
+            + (f" ({sorted(set(fallbacks))[0][:160]})" if fallbacks else ""))
+        log("    host self time by ATen op, a step: " + "; ".join(
+            f"{e.key} {e.count / n_prof:.0f} calls "
+            f"{e.self_cpu_time_total / n_prof / 1e3:.3f} ms"
+            for e in sorted(aten, key=lambda e: -e.self_cpu_time_total)[:10]))
 
 
 def attention_kernel_vs_naive(wl, groups, dev):
@@ -1140,12 +1228,10 @@ def main() -> int:
                "on SmallCNN (28x28, 16/32, F=1568), 200 clients, every "
                "client every round, 3 rounds, E=5"):
         wl, fclients, fspecs, fcfg, fkept, flaunches = phase_fleet()
-    with phase("fleet_ab", "7: fleet A/Bs, use_kernel=False (one round) "
-               "and engine='loop'"):
-        # one plain round: the CNN's A/B held for 3 rounds in earlier
-        # runs, and the script's time now goes to the translm phases
+    with phase("fleet_ab", "7: fleet A/Bs, use_kernel=False and "
+               "engine='loop'"):
         phase_fleet_ab(wl, fclients, fspecs, fcfg, fkept, PARAMS_ATOL_CNN,
-                       1)
+                       len(fkept))
     with phase("translm", "8: translm fleet, run_fleet(engine='batched') "
                "on CharTransformer (d_model 32, 2 heads of 16, d_ff 64, "
                "S=16), 200 clients, every client every round, 3 rounds, "

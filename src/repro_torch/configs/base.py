@@ -1,9 +1,10 @@
-"""Model configuration of the port: a copy of the JAX package's
-``ModelConfig`` (``repro/configs/base.py``), so the port's models take
-the same fields without importing the JAX package.
+"""Model configuration of the port: the fields of the JAX package's
+``ModelConfig`` (``repro/configs/base.py``) that the port's models read,
+with the same defaults, so the port needs nothing of the JAX package.
 
-Only the dataclass is here: the published architecture configs, input
-shapes and smoke variants come with the model zoo (ROADMAP item 16).
+A field joins with the slice whose model reads it; the published
+architecture configs, input shapes and smoke variants come with the
+model zoo (ROADMAP item 16).
 """
 from __future__ import annotations
 
@@ -13,54 +14,14 @@ from typing import Optional
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    # identity
-    arch_id: str = "unnamed"
-    family: str = "dense"  # dense | moe | ssm | hybrid | audio | vlm | xlstm
-    source: str = ""       # citation / model card
-
-    # transformer backbone
-    n_layers: int = 2
+    arch_id: str = "unnamed"              # names the config in errors
     d_model: int = 256
     n_heads: int = 4
     n_kv_heads: int = 4
     d_ff: int = 1024
-    vocab_size: int = 1000
     d_head: Optional[int] = None          # default: d_model // n_heads
-    norm_eps: float = 1e-5
     rope_theta: float = 10000.0
-    use_bias: bool = False
-    tie_embeddings: bool = False
     act: str = "silu"                     # silu (swiglu) | gelu (plain mlp)
-    attention_window: Optional[int] = None  # sliding-window size (None = full)
-    remat: bool = False                   # activation checkpointing per layer
-
-    # MoE
-    n_experts: int = 0                    # 0 = dense FFN
-    moe_top_k: int = 1
-    moe_capacity_factor: float = 1.25
-    use_shared_expert: bool = True        # llama4-style shared expert
-    router_aux_coef: float = 0.01
-
-    # SSM / Mamba2
-    ssm_state: int = 0                    # d_state (0 = no ssm layers)
-    ssm_expand: int = 2
-    ssm_headdim: int = 64
-    ssm_conv: int = 4
-    ssm_chunk: int = 128
-
-    # hybrid (zamba2-style): shared attention block every `attn_every` ssm
-    # layers
-    attn_every: int = 0                   # 0 = not hybrid
-
-    # xLSTM
-    xlstm_pattern: str = ""               # e.g. "msmsmsmsmsms"
-
-    # enc-dec (audio): n_layers is the DECODER depth; encoder depth below
-    enc_layers: int = 0                   # 0 = decoder-only
-    enc_seq_frac: float = 0.5             # fraction of shape.seq for encoder
-
-    # vlm
-    n_patches: int = 0                    # stub patch-embedding prefix length
 
     def __post_init__(self):
         if self.d_head is None:

@@ -140,18 +140,10 @@ class FleetWorkload:
 # transformer char-LM: one pre-norm decoder block over the flash kernel
 # ---------------------------------------------------------------------------
 
-class _Leaves(nn.Module):
-    """One level of the JAX parameter tree: named leaves of given shapes
-    (their values come from the params each call is given)."""
-
-    def __init__(self, **shapes):
-        super().__init__()
-        for name, shape in shapes.items():
-            setattr(self, name, nn.Parameter(torch.zeros(shape),
-                                             requires_grad=False))
-
-    def tree(self) -> Dict[str, torch.Tensor]:
-        return {name: getattr(self, name) for name in self._parameters}
+def _tree(group: nn.Module) -> Dict[str, torch.Tensor]:
+    """A level of the JAX parameter tree as a dict (the values of the
+    params the call was given)."""
+    return {name: getattr(group, name) for name in group._parameters}
 
 
 class CharTransformer(FLModule):
@@ -172,20 +164,27 @@ class CharTransformer(FLModule):
                  d_ff: int = 64, use_kernel: Optional[bool] = None):
         super().__init__()
         self.vocab, self.d_ff, self.use_kernel = vocab, d_ff, use_kernel
-        self.cfg = ModelConfig(arch_id="char_translm", family="transformer",
-                               d_model=d_model, n_heads=n_heads,
-                               n_kv_heads=n_heads, vocab_size=vocab)
+        self.cfg = ModelConfig(arch_id="char_translm", d_model=d_model,
+                               n_heads=n_heads, n_kv_heads=n_heads)
         d, hd = d_model, self.cfg.d_head
         self.embed = self._param(vocab, d)
-        self.norm_attn = _Leaves(scale=(d,))
-        self.attn = _Leaves(wq=(d, n_heads * hd), wk=(d, n_heads * hd),
-                            wv=(d, n_heads * hd), wo=(n_heads * hd, d))
-        self.norm_mlp = _Leaves(scale=(d,))
-        self.mlp = _Leaves(w_gate=(d, d_ff), w_up=(d, d_ff),
-                           w_down=(d_ff, d))
-        self.norm_out = _Leaves(scale=(d,))
+        self.norm_attn = self._group(scale=(d,))
+        self.attn = self._group(wq=(d, n_heads * hd), wk=(d, n_heads * hd),
+                                wv=(d, n_heads * hd), wo=(n_heads * hd, d))
+        self.norm_mlp = self._group(scale=(d,))
+        self.mlp = self._group(w_gate=(d, d_ff), w_up=(d, d_ff),
+                               w_down=(d_ff, d))
+        self.norm_out = self._group(scale=(d,))
         self.w_out = self._param(d, vocab)
         self.b_out = self._param(vocab)
+
+    def _group(self, **shapes) -> nn.Module:
+        """One level of the JAX parameter tree: a module of named
+        placeholder leaves."""
+        group = nn.Module()
+        for name, shape in shapes.items():
+            setattr(group, name, self._param(*shape))
+        return group
 
     def _init_cpu(self, generator):
         d = self.cfg.d_model
@@ -211,11 +210,11 @@ class CharTransformer(FLModule):
         cfg = self.cfg
         x = self.embed[tokens.long()]                   # (B, S, d)
         x = x + multihead_attention(
-            self.attn.tree(), cfg, rmsnorm(self.norm_attn.tree(), x),
+            _tree(self.attn), cfg, rmsnorm(_tree(self.norm_attn), x),
             causal=True, impl=self.impl(tokens))
-        x = x + mlp(self.mlp.tree(), rmsnorm(self.norm_mlp.tree(), x),
+        x = x + mlp(_tree(self.mlp), rmsnorm(_tree(self.norm_mlp), x),
                     act=cfg.act)
-        x = rmsnorm(self.norm_out.tree(), x)
+        x = rmsnorm(_tree(self.norm_out), x)
         return x @ self.w_out + self.b_out
 
     def accuracy(self, params, batch):

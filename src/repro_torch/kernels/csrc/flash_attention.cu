@@ -44,9 +44,12 @@
 // order, and every thread keeps 4 rows x hd/16 columns of acc in
 // registers.  Ragged S is masked (zero rows, -1e30 scores) rather than
 // padded.  q tiles are visited last-first, so the causal blocks with the
-// most live tiles start first.  No atomics: every output is written once.
+// most live tiles start first.  The kernel has no atomics: every output is
+// written once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 namespace {
 
@@ -54,6 +57,7 @@ constexpr int kBQ = 64;        // query rows per block
 constexpr int kBK = 64;        // keys per kv tile (ref.FLASH_BLOCK_K)
 constexpr int kThreads = 256;  // 16 x 16 threads, 4 x 4 scores each
 constexpr float kNegInf = -1e30f;
+constexpr int kMaxDevices = 64;  // devices whose opt-in is remembered
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -232,10 +236,20 @@ int launch(const void* q, const void* k, const void* v, void* out, int b,
            int hq, int hk, int s, int hd, int causal, int window, float scale,
            cudaStream_t stream) {
   const size_t smem = Smem<HD>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, HD>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  // the shared-memory opt-in holds for the function on a device until the
+  // process ends: set it at the first launch on each device, not at every
+  // launch (the fleet's steps make thousands of small launches a round)
+  static std::atomic<bool> opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices || !opted_in[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(flash_attention_kernel<T, HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kMaxDevices) opted_in[dev].store(true, std::memory_order_release);
+  }
   const dim3 grid(b * hq, (s + kBQ - 1) / kBQ);
   flash_attention_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
