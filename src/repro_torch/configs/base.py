@@ -22,6 +22,7 @@ class ModelConfig:
     d_head: Optional[int] = None          # default: d_model // n_heads
     rope_theta: float = 10000.0
     act: str = "silu"                     # silu (swiglu) | gelu (plain mlp)
+    norm_eps: float = 1e-5                # RMSNorm's eps (mlstm_block)
 
     def __post_init__(self):
         if self.d_head is None:

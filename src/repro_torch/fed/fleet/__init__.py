@@ -1,5 +1,6 @@
 """The fleet runtime: cohort groups run batched (vmap over the client
-axis) or one client at a time, on the port's fleet workloads."""
+axis) or one client at a time, on the port's fleet workloads, and the
+named heterogeneity scenarios that drive the sync and fleet runtimes."""
 from repro_torch.fed.fleet.batched import (  # noqa: F401
     CohortGroup,
     FleetConfig,
@@ -11,6 +12,12 @@ from repro_torch.fed.fleet.batched import (  # noqa: F401
     run_fleet_round,
     weighted_param_sum,
 )
+from repro_torch.fed.fleet.scenarios import (  # noqa: F401
+    SCENARIOS,
+    Scenario,
+    build_scenario,
+    run_scenario,
+)
 from repro_torch.fed.fleet.scheduler import (  # noqa: F401
     AdaptiveParticipation,
     ParticipationConfig,
@@ -18,6 +25,7 @@ from repro_torch.fed.fleet.scheduler import (  # noqa: F401
 from repro_torch.fed.fleet.workloads import (  # noqa: F401
     WORKLOADS,
     ArraySpec,
+    CharXLSTM,
     FleetWorkload,
     client_num_samples,
     client_sizes,

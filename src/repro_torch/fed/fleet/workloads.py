@@ -20,13 +20,14 @@ Registry, sized for small fleets as in the JAX package:
   * ``cnn``    — ``SmallCNN`` on 14x14 pseudo-MNIST images
                  (last-layer-gradient features).
   * ``charlm`` — ``CharLSTM`` on the Shakespeare-style char-LM task.
+  * ``xlstm``  — ``CharXLSTM`` (one exponential-gated mLSTM block of
+                 ``repro_torch.models.xlstm``; its norm is the CUDA
+                 RMSNorm kernel on the card) on the same char-LM data.
   * ``translm`` — ``CharTransformer`` (one pre-norm decoder block of
                  ``repro_torch.models.attention``; its tri-state
                  ``use_kernel`` routes attention through the CUDA
-                 flash-attention kernel) on the same char-LM data.
-
-The JAX package's ``xlstm`` workload is not ported yet; ``get_workload``
-names the ROADMAP slice that brings it.
+                 flash-attention kernel and its norms through the CUDA
+                 RMSNorm kernel) on the same char-LM data.
 """
 from __future__ import annotations
 
@@ -49,6 +50,7 @@ from repro_torch.models.layers import (dense_init, init_mlp, init_rmsnorm,
                                        mlp, rmsnorm)
 from repro_torch.models.small import (CharLSTM, FLModule, LogisticRegression,
                                       SmallCNN, token_accuracy)
+from repro_torch.models.xlstm import init_mlstm, mlstm_block
 
 ClientData = Dict[str, np.ndarray]
 
@@ -136,15 +138,77 @@ class FleetWorkload:
                         f"{v.dtype} != {spec.dtype}")
 
 
-# ---------------------------------------------------------------------------
-# transformer char-LM: one pre-norm decoder block over the flash kernel
-# ---------------------------------------------------------------------------
-
 def _tree(group: nn.Module) -> Dict[str, torch.Tensor]:
     """A level of the JAX parameter tree as a dict (the values of the
     params the call was given)."""
     return {name: getattr(group, name) for name in group._parameters}
 
+
+def _group(**shapes) -> nn.Module:
+    """One level of the JAX parameter tree: a module of named placeholder
+    leaves."""
+    group = nn.Module()
+    for name, shape in shapes.items():
+        setattr(group, name,
+                nn.Parameter(torch.zeros(shape), requires_grad=False))
+    return group
+
+
+# ---------------------------------------------------------------------------
+# xLSTM char-LM: one exponential-gated mLSTM block + char head
+# ---------------------------------------------------------------------------
+
+class CharXLSTM(FLModule):
+    """Char-LM of one mLSTM block of ``repro_torch.models.xlstm`` and a
+    char head; the JAX package's ``CharXLSTM``, with its parameter tree's
+    paths as keys (``embed``, ``mlstm.norm.scale``, ``mlstm.wq``, ...,
+    ``mlstm.bf``, ``w_out``, ``b_out``).
+
+    ``use_kernel`` is the tri-state of the block's RMSNorm
+    (``repro_torch.kernels.ops.rmsnorm``), resolved by the tokens'
+    device: ``None`` runs the CUDA kernel on the card and the plain
+    version on the CPU, ``False`` the plain version on the card (the A/B),
+    ``True`` on CPU tokens raises."""
+
+    def __init__(self, vocab: int = 64, d_model: int = 32, n_heads: int = 2,
+                 use_kernel: Optional[bool] = None):
+        super().__init__()
+        self.vocab, self.use_kernel = vocab, use_kernel
+        self.cfg = ModelConfig(arch_id="char_xlstm", d_model=d_model,
+                               n_heads=n_heads, n_kv_heads=n_heads)
+        d, h = d_model, n_heads
+        self.embed = self._param(vocab, d)
+        self.mlstm = _group(wq=(d, d), wk=(d, d), wv=(d, d), wi=(d, h),
+                            wf=(d, h), bf=(h,), bi=(h,), wo_gate=(d, d),
+                            w_out=(d, d))
+        self.mlstm.norm = _group(scale=(d,))
+        self.w_out = self._param(d, vocab)
+        self.b_out = self._param(vocab)
+
+    def _init_cpu(self, generator):
+        d = self.cfg.d_model
+        params = {"embed": torch.randn((self.vocab, d),
+                                       generator=generator) * 0.1}
+        block = init_mlstm(generator, self.cfg)
+        params["mlstm.norm.scale"] = block.pop("norm")["scale"]
+        params.update({f"mlstm.{k}": v for k, v in block.items()})
+        params["w_out"] = dense_init(generator, d, self.vocab)
+        params["b_out"] = torch.zeros((self.vocab,))
+        return params
+
+    def forward(self, tokens):
+        x = self.embed[tokens.long()]                   # (B, S, d)
+        block = dict(_tree(self.mlstm), norm=_tree(self.mlstm.norm))
+        x, _ = mlstm_block(block, self.cfg, x, use_kernel=self.use_kernel)
+        return x @ self.w_out + self.b_out
+
+    def accuracy(self, params, batch):
+        return token_accuracy(self.logits(params, batch["x"]), batch["y"])
+
+
+# ---------------------------------------------------------------------------
+# transformer char-LM: one pre-norm decoder block over the flash kernel
+# ---------------------------------------------------------------------------
 
 class CharTransformer(FLModule):
     """Char-LM of one pre-norm decoder block: causal multi-head
@@ -158,7 +222,9 @@ class CharTransformer(FLModule):
     ``repro_torch.kernels.ops.flash_attention`` (the CUDA kernel, impl
     ``"kernel"``), false through the naive attention; ``None`` picks the
     kernel on the card and the naive attention on the CPU; ``True`` on
-    CPU tokens raises."""
+    CPU tokens raises.  The same switch picks the three RMSNorms' CUDA
+    kernel or plain version (``ops.rmsnorm``), so ``use_kernel=False``
+    is the all-plain model."""
 
     def __init__(self, vocab: int = 64, d_model: int = 32, n_heads: int = 2,
                  d_ff: int = 64, use_kernel: Optional[bool] = None):
@@ -168,23 +234,15 @@ class CharTransformer(FLModule):
                                n_heads=n_heads, n_kv_heads=n_heads)
         d, hd = d_model, self.cfg.d_head
         self.embed = self._param(vocab, d)
-        self.norm_attn = self._group(scale=(d,))
-        self.attn = self._group(wq=(d, n_heads * hd), wk=(d, n_heads * hd),
-                                wv=(d, n_heads * hd), wo=(n_heads * hd, d))
-        self.norm_mlp = self._group(scale=(d,))
-        self.mlp = self._group(w_gate=(d, d_ff), w_up=(d, d_ff),
-                               w_down=(d_ff, d))
-        self.norm_out = self._group(scale=(d,))
+        self.norm_attn = _group(scale=(d,))
+        self.attn = _group(wq=(d, n_heads * hd), wk=(d, n_heads * hd),
+                           wv=(d, n_heads * hd), wo=(n_heads * hd, d))
+        self.norm_mlp = _group(scale=(d,))
+        self.mlp = _group(w_gate=(d, d_ff), w_up=(d, d_ff),
+                          w_down=(d_ff, d))
+        self.norm_out = _group(scale=(d,))
         self.w_out = self._param(d, vocab)
         self.b_out = self._param(vocab)
-
-    def _group(self, **shapes) -> nn.Module:
-        """One level of the JAX parameter tree: a module of named
-        placeholder leaves."""
-        group = nn.Module()
-        for name, shape in shapes.items():
-            setattr(group, name, self._param(*shape))
-        return group
 
     def _init_cpu(self, generator):
         d = self.cfg.d_model
@@ -209,12 +267,15 @@ class CharTransformer(FLModule):
     def forward(self, tokens):
         cfg = self.cfg
         x = self.embed[tokens.long()]                   # (B, S, d)
+        uk = self.use_kernel
         x = x + multihead_attention(
-            _tree(self.attn), cfg, rmsnorm(_tree(self.norm_attn), x),
+            _tree(self.attn), cfg,
+            rmsnorm(_tree(self.norm_attn), x, use_kernel=uk),
             causal=True, impl=self.impl(tokens))
-        x = x + mlp(_tree(self.mlp), rmsnorm(_tree(self.norm_mlp), x),
+        x = x + mlp(_tree(self.mlp),
+                    rmsnorm(_tree(self.norm_mlp), x, use_kernel=uk),
                     act=cfg.act)
-        x = rmsnorm(_tree(self.norm_out), x)
+        x = rmsnorm(_tree(self.norm_out), x, use_kernel=uk)
         return x @ self.w_out + self.b_out
 
     def accuracy(self, params, batch):
@@ -290,6 +351,17 @@ def _charlm_workload() -> FleetWorkload:
                     "Shakespeare-style char-LM task")
 
 
+def _xlstm_workload() -> FleetWorkload:
+    return FleetWorkload(
+        name="xlstm", model=CharXLSTM(vocab=VOCAB, d_model=32, n_heads=2),
+        schema={"x": ArraySpec((_CHARLM_SEQ_LEN,), "int32"),
+                "y": ArraySpec((_CHARLM_SEQ_LEN,), "int32")},
+        make_clients=_charlm_clients,
+        description="one-block exponential-gated mLSTM char-LM (RMSNorm "
+                    "kernel on the card) on the same sequence data as "
+                    "charlm")
+
+
 def _translm_workload() -> FleetWorkload:
     return FleetWorkload(
         name="translm",
@@ -306,21 +378,13 @@ WORKLOADS: Dict[str, Callable[[], FleetWorkload]] = {
     "mlp": _mlp_workload,
     "cnn": _cnn_workload,
     "charlm": _charlm_workload,
+    "xlstm": _xlstm_workload,
     "translm": _translm_workload,
-}
-
-# the JAX package's other workloads, and the ROADMAP slice that ports each
-NOT_PORTED = {
-    "xlstm": "slice 2b (models/xlstm.py's mLSTM block)",
 }
 
 
 def get_workload(name: str) -> FleetWorkload:
     """Materialize a registered workload by name."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"fleet workload {name!r} is not ported yet: ROADMAP "
-            f"{NOT_PORTED[name]}")
     try:
         return WORKLOADS[name]()
     except KeyError:

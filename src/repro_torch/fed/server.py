@@ -73,7 +73,7 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
                   specs: List[ClientSpec], strategy: Strategy,
                   cfg: FLConfig, test_data: Optional[Dict] = None,
                   init_params=None, eval_batch: int = 512,
-                  aggregator: str = "weighted_mean",
+                  scheduler=None, aggregator: str = "weighted_mean",
                   faults=None, verbose: bool = False,
                   device: DeviceLike = None) -> Dict[str, Any]:
     """Synchronous Alg. 1 round loop.
@@ -81,9 +81,12 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
     ``device=None`` means the CUDA card and must match the strategy's
     trainer device.  ``init_params`` (a flat dict of tensors) defaults to
     ``model.init`` from a ``torch.Generator`` seeded with ``cfg.seed``.
-    ``cfg.trace`` perturbs each dispatch's capability.  Robust
-    ``aggregator`` values, ``faults`` and the adaptive-participation
-    ``scheduler`` of the JAX package are not ported yet.
+    ``cfg.trace`` perturbs each dispatch's capability.  ``scheduler``
+    (optional) is an adaptive-participation policy with the ``select`` /
+    ``observe`` / ``record_round`` protocol of
+    ``repro_torch.fed.fleet.scheduler.AdaptiveParticipation``: it replaces
+    ∝ mⁱ sampling with its own cohort and is fed realized durations.
+    Robust ``aggregator`` values and ``faults`` are not ported yet.
     """
     if aggregator != "weighted_mean":
         raise NotImplementedError(
@@ -122,7 +125,10 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
         t0 = time.perf_counter()
         rspan = obs.span_begin("round", round=r)
         with obs.span("cohort_select", round=r):
-            selected = sample_clients(specs, cfg.clients_per_round, rng)
+            if scheduler is not None:
+                selected = [int(c) for c in scheduler.select()]
+            else:
+                selected = sample_clients(specs, cfg.clients_per_round, rng)
         results: List[ClientResult] = []
         times: List[float] = []
         drop_times: List[float] = []
@@ -144,10 +150,15 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
                     client_rows.append((cid, float(deadline), True, False))
                     # dropped stragglers in FedAvg-DS still busy until τ
                     drop_times.append(float(deadline))
+                    if scheduler is not None:   # a drop still occupies τ
+                        scheduler.observe(cid, spec.c * deadline, deadline)
                 else:
                     duration = res.sim_time
                     if trace is not None:
                         duration *= tracei.jitter(spec, k)
+                    if scheduler is not None:
+                        scheduler.observe(cid, res.sim_time * spec.c,
+                                          duration)
                     results.append(res)
                     times.append(duration)
                     obs.metrics.histogram("client_busy_s").observe(duration)
@@ -165,6 +176,8 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
         round_time = max(times + drop_times + [0.0])
         train_loss = float(np.mean([r_.final_loss for r_ in results])
                            ) if results else float("nan")
+        if scheduler is not None:
+            scheduler.record_round(train_loss)
         rec = RoundRecord(
             round=r, sim_round_time=round_time, client_times=times,
             n_participants=len(results), n_dropped=dropped,

@@ -25,7 +25,7 @@ LAUNCHES: Dict[str, int] = {"pairwise_l2": 0, "build_cost": 0,
                             "delta_sweep": 0, "pairwise_l2_batched": 0,
                             "build_cost_from_feats": 0,
                             "delta_sweep_from_feats": 0,
-                            "flash_attention": 0}
+                            "flash_attention": 0, "rmsnorm": 0}
 
 
 def reset_launch_counts() -> None:
@@ -354,3 +354,112 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = float(scale if scale is not None else 1.0 / (hd ** 0.5))
     uk = resolve_use_kernel(use_kernel, q.device)
     return _FlashAttention.apply(q, k, v, causal, window, scale, uk)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm: one autograd.Function for every call
+# ---------------------------------------------------------------------------
+
+def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """Launch ``csrc/rmsnorm.cu`` (kernel 8, the port of the TPU kernel
+    ``src/repro/kernels/rmsnorm.py::rmsnorm_pallas``) on x (G, m, d) and
+    scale (G, d) on the card.  Bound by bytes: it reads x and the scale
+    once and writes y once; one warp per row reads neighbouring elements,
+    and nothing is padded (the TPU wrapper pads m to its row tile)."""
+    if x.dim() != 3 or scale.dim() != 2 or \
+            tuple(scale.shape) != (x.shape[0], x.shape[2]):
+        raise ValueError(f"rmsnorm: expected x (G, m, d) and scale (G, d), "
+                         f"got {tuple(x.shape)} and {tuple(scale.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"rmsnorm: expected float32 or bfloat16 x, got "
+                        f"{x.dtype}")
+    if scale.device != x.device:
+        raise ValueError("rmsnorm: x and scale lie on different devices")
+    x, scale = x.contiguous(), scale.float().contiguous()
+    g, m, d = x.shape
+    inv_d, eps32 = ref.rmsnorm_constants(d, eps)
+    out = torch.empty_like(x)
+    if out.numel():
+        _launch("rmsnorm", x.device, x.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), g, m, d, int(x.dtype == torch.bfloat16),
+                ctypes.c_float(inv_d), ctypes.c_float(eps32))
+    return out
+
+
+def rmsnorm_backward(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                     *, eps: float):
+    """(dx, dscale) of ``rmsnorm`` for x (G, m, d), scale (G, d) and the
+    output gradient ``dy``, in float32 PyTorch tensor ops: with
+    x̂ = x·rs and gs = dy·scale, dx = rs·(gs − x̂·mean(gs·x̂)), and
+    dscale[g] = Σ over group g's rows of dy·x̂."""
+    xf, dyf = x.float(), dy.float()
+    rs = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    xhat = xf * rs
+    gs = dyf * scale.float()[..., None, :]
+    dx = rs * (gs - xhat * torch.mean(gs * xhat, dim=-1, keepdim=True))
+    dscale = torch.sum(dyf * xhat, dim=-2)
+    return dx.to(x.dtype), dscale.to(scale.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """RMSNorm over rows in groups, x (G, m, d) and scale (G, d), as one
+    autograd.Function on every device.
+
+    ``forward`` runs the plain version (``ref.rmsnorm_ref``) or, with
+    ``use_kernel``, the CUDA kernel; the two agree bit for bit.
+    ``backward`` is PyTorch tensor ops (``rmsnorm_backward``): the JAX
+    package's Pallas kernel defines no VJP.  ``vmap`` moves the vmapped
+    axis to the front of x and of the scale (expanding whichever is not
+    batched) and folds it into G, so each vmapped client keeps its own
+    scale, and applies the Function once: the forward sees tensors with
+    storage, and a vmapped SGD step launches the kernel once."""
+
+    @staticmethod
+    def forward(x, scale, eps, use_kernel):
+        if use_kernel:
+            return _rmsnorm_kernel(x, scale, eps)
+        return ref.rmsnorm_ref(x, scale, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, eps, _ = inputs
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_backward(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, eps, use_kernel):
+        n = info.batch_size
+
+        def front(t, dim):
+            return (t.expand((n,) + t.shape) if dim is None
+                    else t.movedim(dim, 0))
+
+        x, scale = front(x, in_dims[0]), front(scale, in_dims[1])
+        out = _RMSNorm.apply(x.reshape((-1,) + x.shape[2:]),
+                             scale.reshape((-1,) + scale.shape[2:]), eps,
+                             use_kernel)
+        return out.reshape(x.shape), 0
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,
+            use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """x·rsqrt(mean(x²) + eps)·scale over the last axis of x (..., d),
+    fp32 or bf16, with scale (d,); the arithmetic in float32, the result
+    in x's dtype.  The leading axes are flattened into rows.
+    Differentiable, under ``torch.func`` transforms too; the gradient is
+    PyTorch ops (see ``_RMSNorm``)."""
+    d = x.shape[-1]
+    if tuple(scale.shape) != (d,):
+        raise ValueError(f"rmsnorm: scale {tuple(scale.shape)} does not "
+                         f"fit x {tuple(x.shape)}")
+    uk = resolve_use_kernel(use_kernel, x.device)
+    out = _RMSNorm.apply(x.reshape(1, -1, d), scale.reshape(1, d),
+                         float(eps), uk)
+    return out.reshape(x.shape)

@@ -16,7 +16,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 BIG = 1e30      # padded-candidate mask (``repro_torch.core.kmedoids.BIG``)
 NEG_INF = -1e30     # attention mask score, as in the JAX kernel
@@ -24,6 +26,10 @@ NEG_INF = -1e30     # attention mask score, as in the JAX kernel
 # ``csrc/flash_attention.cu``): the online softmax updates once per tile,
 # so the plain version must tile the keys alike to give the kernel's bits
 FLASH_BLOCK_K = 64
+# lanes of the warp that sums one row in ``csrc/rmsnorm.cu``: lane l sums
+# the squares of elements l, l + 32, l + 64, ... in order, then the 32
+# lane sums meet in a butterfly; the plain version sums alike
+RMSNORM_LANES = 32
 
 
 def pairwise_l2_ref(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
@@ -205,3 +211,45 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc + p[..., j, None] * vt[..., j, None, :]
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def rmsnorm_constants(d: int, eps: float):
+    """(1/d, eps) rounded to float32 once, as Python floats: the kernel
+    gets the same two values as ``c_float`` arguments."""
+    return (float(np.float32(1.0) / np.float32(d)), float(np.float32(eps)))
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
+                eps: float = 1e-5) -> torch.Tensor:
+    """x (G, m, d) fp32 or bf16, scale (G, d) -> (G, m, d) in x's dtype.
+
+    Row r of group g: y = (x·rs)·scale[g] with rs = 1 / sqrt(Σx²·(1/d) +
+    eps), all in float32, computed as the kernel computes it: lane l of
+    ``RMSNORM_LANES`` sums the squares of elements l, l + 32, ... in order
+    (a missing tail element adds nothing), then the lane sums meet pairwise
+    (lane l + lane l + 16, then + 8, 4, 2, 1); each product and sum
+    rounded on its own; the square root and the reciprocal correctly
+    rounded (``torch.sqrt``, ``torch.reciprocal``; ``torch.rsqrt`` on the
+    card is approximate); the output rounded to x's dtype to nearest
+    even.  The order depends on d alone."""
+    d = x.shape[-1]
+    inv_d, eps32 = rmsnorm_constants(d, eps)
+    xf = x.float()
+    sq = xf * xf
+    n = -(-d // RMSNORM_LANES)
+    if n * RMSNORM_LANES != d:
+        sq = F.pad(sq, (0, n * RMSNORM_LANES - d))
+    sq = sq.reshape(sq.shape[:-1] + (n, RMSNORM_LANES))
+    acc = sq[..., 0, :]
+    for j in range(1, n):
+        acc = acc + sq[..., j, :]
+    w = RMSNORM_LANES
+    while w > 1:
+        w //= 2
+        acc = acc[..., :w] + acc[..., w:2 * w]
+    rs = torch.reciprocal(torch.sqrt(acc * inv_d + eps32))
+    return ((xf * rs) * scale.float()[..., None, :]).to(x.dtype)

@@ -3,8 +3,10 @@
 position embeddings and the feed-forward block.
 
 Parameters are plain dicts of tensors, as in the JAX package; dense
-kernels are (d_in, d_out) and multiply as ``x @ W``.  RMSNorm stays plain
-PyTorch, as the JAX package keeps it plain jnp on every model path.
+kernels are (d_in, d_out) and multiply as ``x @ W``.  RMSNorm goes
+through ``repro_torch.kernels.ops.rmsnorm``: the CUDA kernel on the card,
+its plain version on the CPU.  (The JAX package's model norms are plain
+jnp; its fused Pallas RMSNorm is reached only by its kernel test.)
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 
 Params = Dict[str, torch.Tensor]
 
@@ -40,13 +43,17 @@ def init_rmsnorm(d: int) -> Params:
     return {"scale": torch.ones((d,), dtype=torch.float32)}
 
 
-def rmsnorm(params: Params, x: torch.Tensor,
-            eps: float = 1e-5) -> torch.Tensor:
-    """x·rsqrt(mean(x²) + eps)·scale, in float32, back in x's dtype."""
-    xf = x.float()
-    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
-    return (y * params["scale"]).to(x.dtype)
+def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5,
+            use_kernel: Optional[bool] = None) -> torch.Tensor:
+    """x·rsqrt(mean(x²) + eps)·scale, in float32, back in x's dtype.
+
+    A launch site of kernel 8 (``csrc/rmsnorm.cu``, the port of the TPU
+    kernel ``src/repro/kernels/rmsnorm.py::rmsnorm_pallas``), bound by
+    the bytes of x read once and y written once: ``use_kernel`` is the
+    tri-state of ``ops.rmsnorm`` (None = the kernel on the card, the plain
+    version on the CPU), and under ``vmap`` each client's scale stays its
+    own in one launch."""
+    return ops.rmsnorm(x, params["scale"], eps=eps, use_kernel=use_kernel)
 
 
 # ---------------------------------------------------------------------------

@@ -239,3 +239,74 @@ def test_short_translm_fleet_goes_through_the_attention_kernel(cuda):
     assert ops.LAUNCHES["flash_attention"] > 0, ops.LAUNCHES
     assert all(bool(torch.isfinite(v).all()) for v in out["params"].values())
     assert all(v.device.type == "cuda" for v in out["params"].values())
+
+
+# ---------------------------------------------------------------------------
+# kernel 8: RMSNorm, its gradient under vmap, and an xlstm fleet
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("g,m,d,dtype", [
+    (1, 37, 96, torch.float32), (1, 256, 512, torch.bfloat16),
+    (1, 1, 8, torch.float32), (3, 5, 33, torch.float32),
+    (84, 128, 32, torch.float32), (2, 7, 4097, torch.bfloat16),
+    (4, 3, 1, torch.float32), (5, 11, 768, torch.bfloat16)])
+def test_rmsnorm_kernel_matches_plain(cuda, g, m, d, dtype):
+    """Ragged m, d not a multiple of 32, bf16 and a grouped scale: bit for
+    bit."""
+    gen = torch.Generator(device="cpu").manual_seed(g * m + d)
+    x = (3.0 * torch.randn(g, m, d, generator=gen)).to(cuda, dtype)
+    scale = torch.randn(g, d, generator=gen).to(cuda)
+    ops.reset_launch_counts()
+    got = ops._RMSNorm.apply(x, scale, 1e-5, True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == 1
+    _same(got, ref.rmsnorm_ref(x, scale, 1e-5))
+    flat = ops.rmsnorm(x[0], scale[0])
+    torch.cuda.synchronize()
+    _same(flat, ops.rmsnorm(x[0], scale[0], use_kernel=False))
+
+
+def test_rmsnorm_vmap_of_grad_launches_once_per_step(cuda):
+    """Each vmapped client keeps its own scale in the one launch; its
+    gradient equals the plain forward's (the backward is the same ops)."""
+    from torch.func import grad, vmap
+
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(6, 8, 16, 32, generator=gen).to(cuda)
+    scale = torch.randn(6, 32, generator=gen).to(cuda)
+
+    def loss(x, scale, use_kernel):
+        return torch.sum(ops.rmsnorm(x, scale, use_kernel=use_kernel) ** 2
+                         * torch.arange(32, device=x.device))
+
+    for in_dims in ((0, 0), (0, None), (None, 0)):
+        args = (x if in_dims[0] == 0 else x[0],
+                scale if in_dims[1] == 0 else scale[0])
+        ops.reset_launch_counts()
+        got = vmap(grad(loss, argnums=(0, 1)),
+                   in_dims=in_dims + (None,))(*args, None)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["rmsnorm"] == 1
+        want = vmap(grad(loss, argnums=(0, 1)),
+                    in_dims=in_dims + (None,))(*args, False)
+        for a, b in zip(got, want):
+            _same(a, b)
+
+
+def test_short_xlstm_fleet_goes_through_the_rmsnorm_kernel(cuda):
+    from repro_torch.fed.fleet import FleetConfig, get_workload, run_fleet
+    from repro_torch.fed.simulator import make_client_specs
+
+    wl = get_workload("xlstm")
+    clients = wl.make_clients(n_clients=16, seed=0, mean_samples=60.0,
+                              std_samples=40.0)
+    specs = make_client_specs([len(d["y"]) for d in clients],
+                              np.random.default_rng(0))
+    ops.reset_launch_counts()
+    out = run_fleet(wl, clients, specs, FleetConfig(epochs=2, batch_size=8,
+                                                    lr=0.05), 1,
+                    straggler_pct=50.0)
+    assert out["history"][0].n_coreset > 0
+    assert ops.LAUNCHES["rmsnorm"] > 0, ops.LAUNCHES
+    assert all(bool(torch.isfinite(v).all()) for v in out["params"].values())
+    assert all(v.device.type == "cuda" for v in out["params"].values())

@@ -43,7 +43,7 @@ import repro_torch.fed.fleet.batched as tb  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.fed.fleet import (  # noqa: E402
     AdaptiveParticipation, FleetConfig, ParticipationConfig, get_workload,
-    make_cohort_groups, nominal_budgets, run_fleet)
+    make_cohort_groups, nominal_budgets, run_fleet, run_scenario)
 from repro_torch.fed.simulator import (ClientSpec,  # noqa: E402
                                        straggler_deadline)
 from repro_torch.obs import (InMemorySink, Recorder,  # noqa: E402
@@ -253,15 +253,15 @@ def test_not_ported_arguments_raise():
         run(resume=True)
     with pytest.raises(ValueError, match="unknown fleet engine"):
         run(engine="async")
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        get_workload("xlstm")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        run_scenario("uniform", "async", workload="mlp", device="cpu")
     assert get_workload("translm").name == "translm"
     with pytest.raises(ValueError, match="unknown fleet workload"):
         get_workload("resnet")
 
 
 def test_workload_schema_and_client_bytes_equal_reference():
-    for name in ("mlp", "cnn", "charlm", "translm"):
+    for name in ("mlp", "cnn", "charlm", "xlstm", "translm"):
         jwl, wl = jw.get_workload(name), get_workload(name)
         assert {k: (s.shape, s.dtype) for k, s in wl.schema.items()} == \
             {k: (s.shape, s.dtype) for k, s in jwl.schema.items()}

@@ -86,10 +86,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                                         torch.ones(1, 9), torch.ones(1, 9, 2))
     q = x.reshape(1, 1, 9, 5)
     ops.flash_attention(q, q, q)
+    ops.rmsnorm(x, torch.ones(5))
     assert ops.LAUNCHES == dict.fromkeys(
         ("pairwise_l2", "build_cost", "delta_sweep", "pairwise_l2_batched",
          "build_cost_from_feats", "delta_sweep_from_feats",
-         "flash_attention"), 0)
+         "flash_attention", "rmsnorm"), 0)
 
 
 def test_use_kernel_true_on_a_cpu_tensor_raises():
@@ -99,5 +100,7 @@ def test_use_kernel_true_on_a_cpu_tensor_raises():
     with pytest.raises(ValueError, match="CUDA"):
         ops.kmedoids_build_cost(torch.zeros(1, 4, 4), torch.zeros(1, 4),
                                 torch.zeros(1, 4), use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.rmsnorm(x, torch.ones(3), use_kernel=True)
     assert ops.resolve_use_kernel(None, torch.device("cpu")) is False
     assert ops.resolve_use_kernel(False, torch.device("cpu")) is False
