@@ -96,6 +96,19 @@ phases run in order and any failure exits non-zero:
     registry's 24 clients for ``XLSTM_SCENARIO_ROUNDS`` rounds, each
     through the RMSNorm kernel.
 
+Phases 1-2 run alone.  Phases 3-7 (the sync runtime and the CNN fleet),
+8-9 (the ``translm`` fleet) and 10-11 (the ``xlstm`` fleet) share no
+state, and each group is host-bound (the card idles most of each round),
+so they run as three concurrent processes on the one card, each a
+*lane* (``python3 chip_smoke.py --lane NAME``, started by the script
+itself): a lane sets its own launch counts to 0 around its main path,
+writes its launch counts and phase seconds to ``build/chip_smoke/``, and
+its output is printed in phase order once every lane has ended.  Round
+walls, idle shares and step times of phases 3-11 are therefore taken
+with the other two lanes running.  A lane that fails stops the others;
+lanes still running ``LANE_DEADLINE_S`` seconds after the start are
+stopped and the script fails with what they printed so far.
+
 The last lines are the card (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON object of kernel numbers, and the result line
 ``{"ok": true, "device": {...}}``.  It prints no result and exits 1
@@ -105,6 +118,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
+import signal
 import subprocess
 import sys
 import time
@@ -112,6 +127,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+LANE_DIR = ROOT / "build" / "chip_smoke"
+# the lanes of phases 3-11, run concurrently (see the module docstring)
+LANES = ("sync_cnn", "translm", "xlstm")
+# lanes still running this long after the start are stopped: the whole
+# script must end within 1200 s
+LANE_DEADLINE_S = 1140.0
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor cores
 # and HBM3 bandwidth; the bound of a kernel is the larger of its bytes over
@@ -208,7 +229,8 @@ def time_ms(fn, target_ms: float = 60.0) -> float:
     end.record()
     torch.cuda.synchronize()
     one = max(start.elapsed_time(end), 1e-3)
-    reps = int(max(5, min(200, target_ms / one)))
+    # a call of seconds (plain attention at yi-9b) needs few repeats
+    reps = int(max(2 if one > 500.0 else 5, min(200, target_ms / one)))
     start.record()
     for _ in range(reps):
         fn()
@@ -1122,8 +1144,7 @@ def translm_fleet():
     from repro_torch.fed.fleet import get_workload
 
     wl = get_workload("translm")
-    clients = wl.make_clients(n_clients=200, seed=0, mean_samples=69.0,
-                              std_samples=106.0)
+    clients = char_lm_clients()
     return (wl, clients) + fleet_setup(wl, clients)
 
 
@@ -1411,28 +1432,24 @@ def phase_xlstm_ab(wl, clients, specs, cfg, kept):
         check_params(out)
 
 
-def main() -> int:
-    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
-        print("chip_smoke.py: run it from a checkout of the repository "
-              "(src/repro_torch is missing)", file=sys.stderr)
-        return 1
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke.py: no CUDA device; this script measures the "
-              "port on the card only", file=sys.stderr)
-        return 1
-    sys.path.insert(0, str(SRC))
-    t_start = time.perf_counter()
+T0 = time.time()          # the script's start, shared with its lanes
+PHASE_SECONDS = {}
 
-    log("== phase 1: set-up")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
-        f"{torch.cuda.get_device_name(0)}, power limit not read"
-    log(f"  card: {card}")
-    log(f"  python {sys.version.split()[0]} torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+
+@contextlib.contextmanager
+def phase(key, title):
+    """Log the phase's title with the seconds since the script's start;
+    record its seconds under ``key``."""
+    log(f"[{time.time() - T0:.0f} s] == phase {title}")
+    t = time.perf_counter()
+    yield
+    PHASE_SECONDS[key] = time.perf_counter() - t
+
+
+def setup_torch():
+    """TF32 off and deterministic cuDNN, in every process of the run."""
+    import torch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # deterministic cuDNN: the kernel and plain runs of phases 3 and 4
@@ -1440,34 +1457,20 @@ def main() -> int:
     # parameters reaches the next round's medoid choice
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
-    log("  TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
-        "torch.backends.cudnn.allow_tf32 = False; "
-        "torch.backends.cudnn.deterministic = True")
-    from repro_torch.kernels import _build
-    secs = _build.build_all()
-    log(f"  kernels built in {secs:.2f} s (nvcc, sm_90a, in parallel)")
-    for name, text in _build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill", "error")):
-                log(f"    {name}: {line.strip()}")
-    dev = torch.device("cuda")
 
-    phases = {}
 
-    @contextlib.contextmanager
-    def phase(key, title):
-        """Log the phase's title with the seconds so far; record its
-        seconds under ``key``."""
-        log(f"[{time.perf_counter() - t_start:.0f} s] == phase {title}")
-        t = time.perf_counter()
-        yield
-        phases[key] = time.perf_counter() - t
+def char_lm_clients():
+    """Phases 8-11's 200 char-LM clients at the paper's Table-1 sizes
+    (lognormal, mean 69, std 106)."""
+    from repro_torch.fed.fleet import get_workload
 
-    with phase("kernels", "2: kernels against their plain versions (rtol "
-               "1e-5, atol 1e-5*max|plain|)"):
-        twl, tclients, tspecs, tcfg, tgroups = translm_fleet()
-        kernels = phase_kernels(dev, translm_attention_shapes(tcfg, tgroups))
+    return get_workload("translm").make_clients(
+        n_clients=200, seed=0, mean_samples=69.0, std_samples=106.0)
+
+
+def lane_sync_cnn():
+    """Phases 3-7; returns the launch counts of the sync and CNN fleet
+    main paths."""
     with phase("main_path", "3: main path, FedCore on SmallCNN (28x28, "
                "16/32, F=1568), 200 clients, 3 rounds x 10 clients, E=5"):
         clients, cfg, kout, kstrat, launches = phase_main_path()
@@ -1483,10 +1486,18 @@ def main() -> int:
                "engine='loop'"):
         phase_fleet_ab(wl, fclients, fspecs, fcfg, fkept, PARAMS_ATOL_CNN,
                        len(fkept))
+    return {"sync": launches, "fleet": flaunches}
+
+
+def lane_translm():
+    """Phases 8-9; returns the launch counts of the translm fleet."""
+    import torch
+
     with phase("translm", "8: translm fleet, run_fleet(engine='batched') "
                "on CharTransformer (d_model 32, 2 heads of 16, d_ff 64, "
                "S=16), 200 clients, every client every round, 3 rounds, "
                "E=5"):
+        twl, tclients, tspecs, tcfg, tgroups = translm_fleet()
         tkept, tlaunches = phase_translm(twl, tclients, tspecs, tcfg,
                                          tgroups)
     with phase("translm_ab", "9: translm A/Bs, (a) use_kernel=False, (b) "
@@ -1497,23 +1508,148 @@ def main() -> int:
         check(plaunches["flash_attention"] > 0,
               "the plain-selection run did not launch the attention "
               "kernel")
-        attention_kernel_vs_naive(twl, tgroups, dev)
+        attention_kernel_vs_naive(twl, tgroups, torch.device("cuda"))
+    return {"fleet_translm": tlaunches}
+
+
+def lane_xlstm():
+    """Phases 10-11; returns the launch counts of the xlstm fleet."""
     with phase("xlstm", "10: xlstm fleet, run_fleet(engine='batched') on "
                "CharXLSTM (d_model 32, 2 heads of 16, S=16), 200 clients, "
                "every client every round, 3 rounds, E=5"):
-        xwl, xclients, xspecs, xcfg, xgroups = xlstm_fleet(tclients)
+        xwl, xclients, xspecs, xcfg, xgroups = xlstm_fleet(char_lm_clients())
         xkept, xlaunches = phase_xlstm(xwl, xclients, xspecs, xcfg, xgroups)
     with phase("xlstm_ab", "11: xlstm A/Bs, (a) use_kernel=False selection, "
                "(b) the plain RMSNorm, (c) engine='loop', (d) the scenario "
                "registry's fleet and sync runtimes"):
         phase_xlstm_ab(xwl, xclients, xspecs, xcfg, xkept)
+    return {"fleet_xlstm": xlaunches}
+
+
+def lane_main(name: str, parent: int) -> int:
+    """One lane, started by ``main``: dies with its parent, runs its
+    phases and writes {"launches": {path: counts}, "phases": {key: s}}
+    to ``build/chip_smoke/<name>.json``."""
+    import ctypes
+
+    # PR_SET_PDEATHSIG: stopped with SIGKILL if the script that started
+    # it ends first
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+    if os.getppid() != parent:
+        return 1
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    torch.set_num_threads(2)
+    setup_torch()
+    launches = {"sync_cnn": lane_sync_cnn, "translm": lane_translm,
+                "xlstm": lane_xlstm}[name]()
+    tmp = LANE_DIR / f"{name}.json.tmp"
+    tmp.write_text(json.dumps({"launches": launches,
+                               "phases": PHASE_SECONDS}))
+    tmp.replace(LANE_DIR / f"{name}.json")
+    return 0
+
+
+def run_lanes():
+    """Start the lanes, wait for all of them, print their output in
+    order; returns their merged results.  Any lane's failure stops the
+    others and fails the phase, as does the deadline."""
+    import shutil
+
+    shutil.rmtree(LANE_DIR, ignore_errors=True)
+    LANE_DIR.mkdir(parents=True)
+    procs, logs = {}, {}
+    env = dict(os.environ, CHIP_SMOKE_T0=repr(T0))
+    try:
+        for name in LANES:
+            logs[name] = open(LANE_DIR / f"{name}.log", "w")
+            procs[name] = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--lane",
+                 name, str(os.getpid())], cwd=ROOT, env=env,
+                stdout=logs[name], stderr=subprocess.STDOUT)
+        log(f"  lanes {', '.join(LANES)} started")
+        while True:
+            codes = {n: p.poll() for n, p in procs.items()}
+            failed = [n for n, c in codes.items() if c not in (None, 0)]
+            if failed or all(c == 0 for c in codes.values()):
+                break
+            if time.time() - T0 > LANE_DEADLINE_S:
+                failed = [n for n, c in codes.items() if c is None]
+                break
+            time.sleep(1.0)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs.values():
+            f.close()
+    for name in LANES:
+        log(f"-- lane {name} (exit {procs[name].returncode}):")
+        sys.stdout.write((LANE_DIR / f"{name}.log").read_text())
+        sys.stdout.flush()
+    check(not failed, f"lane(s) {', '.join(failed)} failed or were stopped "
+          f"(exits {[procs[n].returncode for n in failed]}; deadline "
+          f"{LANE_DEADLINE_S:.0f} s)")
+    by_path, phases = {}, {}
+    for name in LANES:
+        res = json.loads((LANE_DIR / f"{name}.json").read_text())
+        by_path.update(res["launches"])
+        phases.update(res["phases"])
+    return by_path, phases
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 1
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device; this script measures the "
+              "port on the card only", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    # the lanes' processes end with this one, however it ends
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+
+    log("== phase 1: set-up")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
+        f"{torch.cuda.get_device_name(0)}, power limit not read"
+    log(f"  card: {card}")
+    log(f"  python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda}")
+    setup_torch()
+    log("  TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False; "
+        "torch.backends.cudnn.deterministic = True")
+    from repro_torch.kernels import _build
+    secs = _build.build_all()
+    log(f"  kernels built in {secs:.2f} s (nvcc, sm_90a, in parallel)")
+    for name, text in _build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "error")):
+                log(f"    {name}: {line.strip()}")
+    dev = torch.device("cuda")
+
+    with phase("kernels", "2: kernels against their plain versions (rtol "
+               "1e-5, atol 1e-5*max|plain|)"):
+        _, _, _, tcfg, tgroups = translm_fleet()
+        kernels = phase_kernels(dev, translm_attention_shapes(tcfg, tgroups))
+    log(f"[{time.time() - T0:.0f} s] == phases 3-11 in three concurrent "
+        f"lanes: 3-7 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 ({LANES[2]})")
+    by_path, lane_phases = run_lanes()
+    PHASE_SECONDS.update(lane_phases)
 
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
-                                      phases.items())
-        + f"; total {time.perf_counter() - t_start:.1f}")
+                                      PHASE_SECONDS.items())
+        + f"; total {time.time() - T0:.1f}")
     line = {"kernels": []}
-    by_path = {"sync": launches, "fleet": flaunches,
-               "fleet_translm": tlaunches, "fleet_xlstm": xlaunches}
     check(all(by_path[p]["rmsnorm"] > 0
               for p in ("fleet_translm", "fleet_xlstm")),
           "the RMSNorm kernel did not launch on both char-LM fleets")
@@ -1537,7 +1673,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if os.environ.get("CHIP_SMOKE_T0"):
+        T0 = float(os.environ["CHIP_SMOKE_T0"])
     try:
+        if len(sys.argv) == 4 and sys.argv[1] == "--lane":
+            sys.exit(lane_main(sys.argv[2], int(sys.argv[3])))
         sys.exit(main())
     except PhaseFailed as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)
