@@ -32,7 +32,8 @@ buffers; PyTorch runs eagerly and has no counterpart of either, so
 ``dispatch_count`` counts one dispatch per group (one per step on the
 loop path) as the reference does, and its program-cache counters have no
 counterpart here.  Not ported yet, each raising ``NotImplementedError``:
-robust ``aggregator`` values and ``faults`` (ROADMAP item 12),
+robust ``aggregator`` values and every ``faults`` profile but
+``"none"`` (ROADMAP item 12),
 ``checkpoint_dir`` / ``resume`` (item 13) and ``engine="sharded"``
 (item 15).
 """
@@ -49,6 +50,7 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core.coreset import build_coreset_batched
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fed.cost import resolve_cost
+from repro_torch.fed.faults import check_no_faults
 from repro_torch.fed.fleet.workloads import client_num_samples
 from repro_torch.fed.server import RoundRecord, make_eval_fn
 from repro_torch.fed.simulator import (CapabilityTrace, ClientSpec,
@@ -497,8 +499,9 @@ def run_fleet(model, clients_data: Sequence[ClientData],
     defaults to ``model.init`` from a ``torch.Generator`` seeded with
     ``cfg.seed``.
 
-    Not ported yet, each raising ``NotImplementedError``:
-    ``engine="sharded"`` (ROADMAP item 15), ``faults`` and robust
+    ``faults`` None and ``"none"`` run without faults.  Not ported yet,
+    each raising ``NotImplementedError``: ``engine="sharded"`` (ROADMAP
+    item 15), any other ``faults`` profile and robust
     ``cfg.aggregator`` values (item 12), ``checkpoint_dir``,
     ``checkpoint_every`` and ``resume`` (item 13).
     """
@@ -512,9 +515,7 @@ def run_fleet(model, clients_data: Sequence[ClientData],
         raise NotImplementedError(
             f"fleet aggregator {cfg.aggregator!r} is not ported yet: robust "
             "aggregation is ROADMAP item 12 (only 'weighted_mean')")
-    if faults is not None:
-        raise NotImplementedError(
-            "fleet fault injection is not ported yet: ROADMAP item 12")
+    check_no_faults(faults)
     if checkpoint_dir is not None or checkpoint_every or resume:
         raise NotImplementedError(
             "fleet checkpoint / resume is not ported yet: ROADMAP item 13")

@@ -24,9 +24,9 @@ comparable across scenarios):
 Ported runtimes: ``"sync"`` (``run_federated`` with ``FedCore``) and
 ``"fleet"`` (``run_fleet``, engines ``batched`` and ``loop``).  Not
 ported yet, each raising ``NotImplementedError``: the ``"async"`` and
-``"async_fleet"`` runtimes (ROADMAP item 11), ``faults`` and the robust
-aggregators (item 12), and ``fleet_engine="sharded"`` (item 15, raised
-by ``run_fleet``).
+``"async_fleet"`` runtimes (ROADMAP item 11), every ``faults`` profile
+but ``"none"`` and the robust aggregators (item 12), and
+``fleet_engine="sharded"`` (item 15, raised by ``run_fleet``).
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.device import DeviceLike
+from repro_torch.fed.faults import check_no_faults
 from repro_torch.fed.fleet.workloads import (FleetWorkload, client_sizes,
                                              get_workload)
 from repro_torch.fed.simulator import ClientSpec, TraceConfig
@@ -152,8 +153,9 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
     ``concurrency`` belong to its async runtimes and come with them.
 
     Not ported yet, each raising ``NotImplementedError``: the ``"async"``
-    and ``"async_fleet"`` runtimes (ROADMAP item 11), ``faults`` and
-    aggregators other than ``"weighted_mean"`` (item 12),
+    and ``"async_fleet"`` runtimes (ROADMAP item 11), ``faults`` other
+    than None and ``"none"`` and aggregators other than
+    ``"weighted_mean"`` (item 12),
     ``fleet_engine="sharded"`` (item 15).
     """
     from repro_torch.core.coreset import FedCoreConfig
@@ -166,9 +168,7 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
             f"the {runtime!r} runtime is not ported yet: ROADMAP item 11")
     if runtime not in ("sync", "fleet"):
         raise ValueError(f"unknown runtime {runtime!r}")
-    if faults is not None:
-        raise NotImplementedError(
-            "fault injection is not ported yet: ROADMAP item 12")
+    check_no_faults(faults)
     # the sync and fleet runtimes take an aggregator by name; an
     # aggregator object is for the async runtimes, as in the JAX package
     agg = aggregator if isinstance(aggregator, str) else "weighted_mean"

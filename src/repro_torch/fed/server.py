@@ -18,6 +18,7 @@ import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fed.aggregators import SyncWeightedMean
+from repro_torch.fed.faults import check_no_faults
 from repro_torch.fed.simulator import (CapabilityTrace, ClientSpec,
                                        DispatchTraceIndexer, TraceConfig,
                                        straggler_deadline)
@@ -86,14 +87,15 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
     ``observe`` / ``record_round`` protocol of
     ``repro_torch.fed.fleet.scheduler.AdaptiveParticipation``: it replaces
     ∝ mⁱ sampling with its own cohort and is fed realized durations.
-    Robust ``aggregator`` values and ``faults`` are not ported yet.
+    ``faults`` None and ``"none"`` run without faults; robust
+    ``aggregator`` values and every other fault profile are not ported
+    yet (ROADMAP item 12).
     """
     if aggregator != "weighted_mean":
         raise NotImplementedError(
             f"aggregator {aggregator!r} is not ported yet (only "
             "'weighted_mean')")
-    if faults is not None:
-        raise NotImplementedError("fault injection is not ported yet")
+    check_no_faults(faults)
     dev = resolve_device(device)
     if strategy.trainer.device != dev:
         raise ValueError(f"run_federated on {dev} but the strategy's "

@@ -46,7 +46,7 @@ KERNELS = {
                                "fedcore_delta_sweep_from_feats",
                                [_P] * 8 + [_I] * 4 + [_P]),
     "flash_attention": ("flash_attention.cu", "fedcore_flash_attention",
-                        [_P] * 4 + [_I] * 8 + [_F] + [_P]),
+                        [_P] * 4 + [_I] * 9 + [_F] + [_P]),
     "rmsnorm": ("rmsnorm.cu", "fedcore_rmsnorm",
                 [_P] * 3 + [_I] * 4 + [_F] * 2 + [_P]),
 }

@@ -15,11 +15,13 @@ kernel), so a run can show that the main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import inspect
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, ref
 
 LAUNCHES: Dict[str, int] = {"pairwise_l2": 0, "build_cost": 0,
                             "delta_sweep": 0, "pairwise_l2_batched": 0,
@@ -67,14 +69,32 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
+# each kernel's ctypes entry point, resolved (and built) at its first launch
+_FNS: Dict[str, object] = {}
+
+
 def _launch(name: str, device: torch.device, *args) -> None:
-    from repro_torch.kernels._build import kernel_function
-    fn = kernel_function(name)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    """Launch kernel ``name`` on ``device``'s current stream: the entry
+    point is resolved once, the raw stream handle taken once, and the
+    device switched only when ``device`` is not the current one."""
+    fn = _FNS.get(name)
+    if fn is None:
+        fn = _FNS[name] = _build.kernel_function(name)
+    cur = torch.cuda.current_device()
+    idx = cur if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == cur:
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(idx):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
     LAUNCHES[name] += 1
+
+
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    return t if t.is_contiguous() else t.contiguous()
 
 
 def pairwise_l2(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
@@ -226,7 +246,8 @@ def _flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool,
                             window: Optional[int],
                             scale: float) -> torch.Tensor:
-    """Launch ``csrc/flash_attention.cu`` on q/k/v on the card."""
+    """Launch ``csrc/flash_attention.cu`` on q/k/v on the card: bf16 on
+    its tensor-core kernel (wgmma, TMA), fp32 on its SIMT kernel."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("flash_attention: expected q (B, Hq, S, hd) and "
                          "k/v (B, Hk, S, hd)")
@@ -250,14 +271,28 @@ def _flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                          "devices")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention: window {window} < 1")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    q, k, v = _contiguous(q), _contiguous(k), _contiguous(v)
+    out = torch.empty((b, hq, s, hd), dtype=q.dtype, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    ld = hd
+    if bf16:      # TMA's rows: a multiple of 8 elements, 16-byte aligned
+        ld = -(-hd // 8) * 8
+        q, k, v = (_tma_rows(t, ld) for t in (q, k, v))
     if out.numel():
         _launch("flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), b, hq, hk, s, hd, int(causal),
-                int(window or 0), int(q.dtype == torch.bfloat16),
+                v.data_ptr(), out.data_ptr(), b, hq, hk, s, hd, ld,
+                int(causal), int(window or 0), int(bf16),
                 ctypes.c_float(scale))
     return out
+
+
+def _tma_rows(t: torch.Tensor, ld: int) -> torch.Tensor:
+    """``t`` (..., hd) contiguous as the bf16 kernel's TMA reads it: rows
+    of ``ld`` elements (zero columns past hd; TMA takes row strides in
+    multiples of 16 bytes) from a 16-byte aligned address."""
+    if t.shape[-1] != ld:
+        return F.pad(t, (0, ld - t.shape[-1]))
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def flash_attention_backward(q: torch.Tensor, k: torch.Tensor,
@@ -338,6 +373,18 @@ class _FlashAttention(torch.autograd.Function):
         return out.reshape((n, -1) + out.shape[1:]), 0
 
 
+def _keep_signature(fn: type) -> None:
+    """``autograd.Function.apply`` binds its arguments to ``forward``'s
+    signature at every call (``setup_context`` style), and
+    ``inspect.signature`` builds that signature anew each time, a large
+    part of a small call's host time: keep it on ``forward``, where
+    ``inspect`` looks first."""
+    fn.forward.__signature__ = inspect.signature(fn.forward)
+
+
+_keep_signature(_FlashAttention)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     scale: Optional[float] = None,
@@ -365,8 +412,8 @@ def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor,
     """Launch ``csrc/rmsnorm.cu`` (kernel 8, the port of the TPU kernel
     ``src/repro/kernels/rmsnorm.py::rmsnorm_pallas``) on x (G, m, d) and
     scale (G, d) on the card.  Bound by bytes: it reads x and the scale
-    once and writes y once; one warp per row reads neighbouring elements,
-    and nothing is padded (the TPU wrapper pads m to its row tile)."""
+    once and writes y once, 16 bytes a lane, a row's lanes on neighbouring
+    vectors; nothing is padded (the TPU wrapper pads m to its row tile)."""
     if x.dim() != 3 or scale.dim() != 2 or \
             tuple(scale.shape) != (x.shape[0], x.shape[2]):
         raise ValueError(f"rmsnorm: expected x (G, m, d) and scale (G, d), "
@@ -376,7 +423,9 @@ def _rmsnorm_kernel(x: torch.Tensor, scale: torch.Tensor,
                         f"{x.dtype}")
     if scale.device != x.device:
         raise ValueError("rmsnorm: x and scale lie on different devices")
-    x, scale = x.contiguous(), scale.float().contiguous()
+    x = _contiguous(x)
+    if scale.dtype != torch.float32 or not scale.is_contiguous():
+        scale = scale.float().contiguous()
     g, m, d = x.shape
     inv_d, eps32 = ref.rmsnorm_constants(d, eps)
     out = torch.empty_like(x)
@@ -446,6 +495,9 @@ class _RMSNorm(torch.autograd.Function):
                              scale.reshape((-1,) + scale.shape[2:]), eps,
                              use_kernel)
         return out.reshape(x.shape), 0
+
+
+_keep_signature(_RMSNorm)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5,

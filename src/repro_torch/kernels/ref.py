@@ -5,15 +5,18 @@ Each function is the mathematical definition its CUDA kernel in
 it, and each repeats its kernel's arithmetic: every sum runs over its
 reduced index in order, one rounded product and one rounded add per
 term.  A kernel and its plain version therefore agree bit for bit on the
-card, and a run with ``use_kernel=False`` picks the same medoids as one
-through the kernels — k-medoids turns the last bit of a distance sum into
-a different, equally good coreset.  The loops make these versions slow;
-they are no yardstick of speed.  ``repro_torch.kernels.ops`` takes them
-for tensors on the CPU, the tests hold them against the JAX ops, and
-``chip_smoke.py`` holds the kernels against them on the card.
+card (all but the bf16 flash attention, whose tensor-core sums run in
+the hardware's order: see ``flash_attention_ref``), and a run with
+``use_kernel=False`` picks the same medoids as one through the kernels —
+k-medoids turns the last bit of a distance sum into a different, equally
+good coreset.  The loops make these versions slow; they are no yardstick
+of speed.  ``repro_torch.kernels.ops`` takes them for tensors on the
+CPU, the tests hold them against the JAX ops, and ``chip_smoke.py``
+holds the kernels against them on the card.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
@@ -22,14 +25,21 @@ import torch.nn.functional as F
 
 BIG = 1e30      # padded-candidate mask (``repro_torch.core.kmedoids.BIG``)
 NEG_INF = -1e30     # attention mask score, as in the JAX kernel
-# keys per kv tile of the flash-attention kernel (``kBK`` in
+# keys per kv tile of the flash-attention kernels (``kKeys`` in
 # ``csrc/flash_attention.cu``): the online softmax updates once per tile,
 # so the plain version must tile the keys alike to give the kernel's bits
 FLASH_BLOCK_K = 64
-# lanes of the warp that sums one row in ``csrc/rmsnorm.cu``: lane l sums
-# the squares of elements l, l + 32, l + 64, ... in order, then the 32
-# lane sums meet in a butterfly; the plain version sums alike
+# the order in which ``csrc/rmsnorm.cu`` sums a row's squares: with V the
+# elements of one 16-byte load (4 fp32, 8 bf16), a row of up to
+# RMSNORM_WARP_CHUNKS chunks of 32 V has one warp of 32 lanes, a longer
+# one RMSNORM_BLOCK_WARPS warps; lane l sums the squares of elements
+# c*NV + V*l ... c*NV + V*l + V - 1 of every chunk c of N V (N its row's
+# lanes) in order, each warp's lane sums meet in a butterfly, and the
+# warps' sums are added in warp order; the plain version sums alike
 RMSNORM_LANES = 32
+RMSNORM_LOAD_BYTES = 16
+RMSNORM_WARP_CHUNKS = 8
+RMSNORM_BLOCK_WARPS = 8
 
 
 def pairwise_l2_ref(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
@@ -182,7 +192,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tile runs for every query, which changes no bit: a tile a query cannot
     see adds exact zeros once the query has seen a key, and what it adds
     before that is wiped by corr = 0 at the query's first visible key
-    (its own position, always visible)."""
+    (its own position, always visible).
+
+    For bf16 inputs the kernel is the tensor-core path, which rounds each
+    tile's p_j to bf16 before the weighted sum of V (the register operand
+    of its wgmma); so does this version: acc' = acc·corr + Σ bf16(p_j)·v_j,
+    while l sums the fp32 p_j.  The two then differ only in the order of
+    the fp32 sums inside a wgmma, which no plain version can repeat."""
     b, hq, s, hd = q.shape
     hk = k.shape[1]
     scale = float(scale if scale is not None else 1.0 / (hd ** 0.5))
@@ -204,19 +220,49 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m_new = torch.maximum(m, torch.amax(sc, dim=-1))
         p = torch.exp(sc - m_new[..., None])
         corr = torch.exp(m - m_new)
+        pv = (p.to(torch.bfloat16).float() if q.dtype == torch.bfloat16
+              else p)
         l = l * corr
         acc = acc * corr[..., None]
         for j in range(n):
             l = l + p[..., j]
-            acc = acc + p[..., j, None] * vt[..., j, None, :]
+            acc = acc + pv[..., j, None] * vt[..., j, None, :]
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
+
+
+def flash_attention_f64(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """The float64 oracle of ``flash_attention_ref``: masked softmax
+    attention in float64 from the same inputs, (B, Hq, S, hd) float64,
+    a few heads at a time (a head's scores held whole).  It has no tiles
+    and no rounding of P: the yardstick that the bf16 kernel and SDPA are
+    both measured against."""
+    b, hq, s, hd = q.shape
+    g = hq // k.shape[1]
+    scale = float(scale if scale is not None else 1.0 / (hd ** 0.5))
+    ok = attention_mask(s, causal, window, q.device)
+    qf = q.double().reshape(b * hq, s, hd)
+    heads = torch.arange(b * hq, device=q.device)
+    kv = (heads // hq) * k.shape[1] + (heads % hq) // g
+    kf = k.double().reshape(-1, s, hd)
+    vf = v.double().reshape(-1, s, hd)
+    out = torch.empty_like(qf)
+    step = max(1, (1 << 26) // (s * s))
+    for h0 in range(0, b * hq, step):
+        h = slice(h0, h0 + step)
+        sc = torch.matmul(qf[h], kf[kv[h]].transpose(-1, -2)) * scale
+        sc = sc.masked_fill(~ok, float("-inf"))
+        out[h] = torch.matmul(torch.softmax(sc, dim=-1), vf[kv[h]])
+    return out.reshape(b, hq, s, hd)
 
 
 # ---------------------------------------------------------------------------
 # RMSNorm
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
 def rmsnorm_constants(d: int, eps: float):
     """(1/d, eps) rounded to float32 once, as Python floats: the kernel
     gets the same two values as ``c_float`` arguments."""
@@ -228,28 +274,43 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor,
     """x (G, m, d) fp32 or bf16, scale (G, d) -> (G, m, d) in x's dtype.
 
     Row r of group g: y = (x·rs)·scale[g] with rs = 1 / sqrt(Σx²·(1/d) +
-    eps), all in float32, computed as the kernel computes it: lane l of
-    ``RMSNORM_LANES`` sums the squares of elements l, l + 32, ... in order
-    (a missing tail element adds nothing), then the lane sums meet pairwise
-    (lane l + lane l + 16, then + 8, 4, 2, 1); each product and sum
-    rounded on its own; the square root and the reciprocal correctly
-    rounded (``torch.sqrt``, ``torch.reciprocal``; ``torch.rsqrt`` on the
-    card is approximate); the output rounded to x's dtype to nearest
-    even.  The order depends on d alone."""
+    eps), all in float32, computed as the kernel computes it: with V the
+    elements of one 16-byte load (4 fp32, 8 bf16), a row has W = 1 warp
+    of ``RMSNORM_LANES`` lanes, or W = ``RMSNORM_BLOCK_WARPS`` when it is
+    longer than ``RMSNORM_WARP_CHUNKS`` chunks of 32·V; lane l of its N =
+    32·W lanes sums the squares of elements c·NV + V·l + e of every chunk
+    c, chunk by chunk and e = 0 … V−1 within one, in order (a missing tail
+    element adds nothing); each warp's 32 lane sums meet pairwise (lane l
+    + lane l + 16, then + 8, 4, 2, 1); the W warp sums are added in warp
+    order; each product and sum rounded on its own; the square root and
+    the reciprocal correctly rounded (``torch.sqrt``, ``torch.reciprocal``;
+    ``torch.rsqrt`` on the card is approximate); the output rounded to x's
+    dtype to nearest even.  The order depends on d and V alone: a short
+    row's kernel lanes are the first lanes of this order, whose others
+    add zeros."""
     d = x.shape[-1]
     inv_d, eps32 = rmsnorm_constants(d, eps)
     xf = x.float()
     sq = xf * xf
-    n = -(-d // RMSNORM_LANES)
-    if n * RMSNORM_LANES != d:
-        sq = F.pad(sq, (0, n * RMSNORM_LANES - d))
-    sq = sq.reshape(sq.shape[:-1] + (n, RMSNORM_LANES))
-    acc = sq[..., 0, :]
-    for j in range(1, n):
-        acc = acc + sq[..., j, :]
+    vec = RMSNORM_LOAD_BYTES // x.element_size()
+    warps = (1 if d <= RMSNORM_WARP_CHUNKS * RMSNORM_LANES * vec
+             else RMSNORM_BLOCK_WARPS)
+    lanes = RMSNORM_LANES * warps
+    chunk = lanes * vec
+    n = -(-d // chunk)
+    if n * chunk != d:
+        sq = F.pad(sq, (0, n * chunk - d))
+    sq = sq.reshape(sq.shape[:-1] + (n, lanes, vec))
+    acc = sq[..., 0, :, 0]
+    for j in range(1, n * vec):
+        acc = acc + sq[..., j // vec, :, j % vec]
+    acc = acc.reshape(acc.shape[:-1] + (warps, RMSNORM_LANES))
     w = RMSNORM_LANES
     while w > 1:
         w //= 2
         acc = acc[..., :w] + acc[..., w:2 * w]
-    rs = torch.reciprocal(torch.sqrt(acc * inv_d + eps32))
+    total = acc[..., 0, 0]
+    for i in range(1, warps):
+        total = total + acc[..., i, 0]
+    rs = torch.reciprocal(torch.sqrt(total[..., None] * inv_d + eps32))
     return ((xf * rs) * scale.float()[..., None, :]).to(x.dtype)

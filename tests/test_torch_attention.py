@@ -86,6 +86,39 @@ def test_plain_flash_attention_matches_pallas_and_oracle(b, hq, hk, s, hd,
         .float().numpy())
 
 
+# bf16 cases of the tensor-core path's plain version: GQA, windows, a
+# ragged S and the narrowest and widest head dims
+BF16_CASES = [(2, 4, 2, 128, 64, None), (1, 4, 2, 128, 64, 48),
+              (2, 4, 2, 40, 16, None), (2, 4, 2, 40, 16, 7),
+              (1, 2, 2, 64, 128, None), (2, 8, 1, 128, 64, 16)]
+
+
+@pytest.mark.parametrize("b,hq,hk,s,hd,window", BF16_CASES)
+def test_plain_bf16_attention_rounds_p_and_matches_pallas(b, hq, hk, s, hd,
+                                                          window):
+    """The plain bf16 version rounds each tile's P to bf16 before P.V, as
+    the tensor-core kernel does, and stays within the JAX kernel tests'
+    bf16 tolerance of the Pallas kernel (interpret mode, fp32 P) and of
+    the oracle; it is exactly the fp32 arithmetic on the bf16 inputs but
+    for that rounding (both P's differ by at most half a bf16 ulp)."""
+    q, k, v = _qkv(b * hq + s + hd + 1, b, hq, hk, s, hd)
+    jq, jk, jv = (jnp.asarray(a).astype("bfloat16") for a in (q, k, v))
+    tq, tk, tv = (torch.tensor(a).to(torch.bfloat16) for a in (q, k, v))
+    got = ops.flash_attention(tq, tk, tv, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    got = got.float().numpy()
+    pallas = jops.flash_attention(jq, jk, jv, window=window, interpret=True)
+    oracle = jref.flash_attention_ref(jq, jk, jv, window=window)
+    for want in (pallas, oracle):
+        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+                                   **_tol("bfloat16"))
+    # the fp32 path on the same (bf16-valued) inputs keeps P in fp32
+    fp32 = ref.flash_attention_ref(tq.float(), tk.float(), tv.float(),
+                                   window=window)
+    np.testing.assert_allclose(got, fp32.numpy(), **_tol("bfloat16"))
+    assert not np.array_equal(got, fp32.to(torch.bfloat16).float().numpy())
+
+
 def test_non_causal_and_scale_match_oracle():
     q, k, v = _qkv(5, 1, 4, 2, 96, 32)
     got = ops.flash_attention(*map(torch.tensor, (q, k, v)), causal=False,

@@ -178,6 +178,34 @@ def test_short_fleet_run_goes_through_the_fleet_kernels(cuda):
 # kernel 7: flash attention, its gradient under vmap, and a translm fleet
 # ---------------------------------------------------------------------------
 
+def _qkv(b, hq, hk, s, hd, dtype, dev):
+    g = torch.Generator(device="cpu").manual_seed(b * s + hd)
+    return tuple(torch.randn(b, h, s, hd, generator=g).to(dev, dtype)
+                 for h in (hq, hk, hk))
+
+
+def _bf16_rule(got, q, k, v, causal, window):
+    """The bf16 kernel's check (its wgmma sums run in the hardware's
+    order, which no plain version repeats): (i) within rtol = atol = 2e-2
+    of the plain version; (ii) max and mean absolute error against the
+    float64 oracle each at most 2x SDPA's on the same bf16 inputs."""
+    import torch.nn.functional as F
+
+    plain = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), plain.float(), rtol=2e-2,
+                               atol=2e-2)
+    oracle = ref.flash_attention_f64(q, k, v, causal=causal, window=window)
+    mask = ref.attention_mask(q.shape[2], causal, window, q.device)
+    sdpa = F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask if window else None,
+        is_causal=causal and not window, enable_gqa=q.shape[1] != k.shape[1])
+    e_k, e_s = (got.double() - oracle).abs(), (sdpa.double() - oracle).abs()
+    assert float(e_k.max()) <= 2 * float(e_s.max()), \
+        (float(e_k.max()), float(e_s.max()))
+    assert float(e_k.mean()) <= 2 * float(e_s.mean()), \
+        (float(e_k.mean()), float(e_s.mean()))
+
+
 @pytest.mark.parametrize("b,hq,hk,s,hd,window,dtype", [
     (2, 4, 2, 128, 64, None, torch.float32),
     (2, 8, 1, 128, 64, None, torch.float32),
@@ -188,17 +216,70 @@ def test_short_fleet_run_goes_through_the_fleet_kernels(cuda):
     (2, 4, 2, 100, 32, 16, torch.bfloat16)])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hk, s, hd,
                                               window, dtype):
-    g = torch.Generator(device="cpu").manual_seed(b * s + hd)
-    q = torch.randn(b, hq, s, hd, generator=g).to(cuda, dtype)
-    k = torch.randn(b, hk, s, hd, generator=g).to(cuda, dtype)
-    v = torch.randn(b, hk, s, hd, generator=g).to(cuda, dtype)
+    """fp32: bit for bit; bf16: the tensor-core path's rule."""
+    q, k, v = _qkv(b, hq, hk, s, hd, dtype, cuda)
     for causal in (True, False):
         ops.reset_launch_counts()
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         assert ops.LAUNCHES["flash_attention"] == 1
+        if dtype == torch.bfloat16:
+            _bf16_rule(got, q, k, v, causal, window)
+        else:
+            _same(got, ref.flash_attention_ref(q, k, v, causal=causal,
+                                               window=window))
+
+
+@pytest.mark.parametrize("hd", [16, 64, 100, 128])
+@pytest.mark.parametrize("b,hq,hk,s,window,causal", [
+    (1, 4, 2, 256, None, True), (2, 2, 1, 192, 16, True),
+    (1, 2, 2, 40, None, True), (1, 4, 4, 130, 128, False),
+    (2, 2, 2, 77, None, False)])
+def test_bf16_flash_attention_against_the_oracle(cuda, b, hq, hk, s, window,
+                                                 causal, hd):
+    """The tensor-core path at head dims 16, 64, 100 (padded) and 128,
+    causal, windowed, full, GQA and ragged S."""
+    q, k, v = _qkv(b, hq, hk, s, hd, torch.bfloat16, cuda)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    _bf16_rule(got, q, k, v, causal, window)
+
+
+@pytest.mark.parametrize("s", [1, 16, 24, 32])
+@pytest.mark.parametrize("b,hq,hk,hd,window", [
+    (672, 2, 2, 16, None), (5, 4, 2, 32, 7), (3, 3, 1, 40, None)])
+def test_packed_fp32_flash_attention_is_bit_for_bit(cuda, b, hq, hk, hd,
+                                                    window, s):
+    """S <= 32: a block packs 64 / S_pad sequences; each row keeps its
+    plain arithmetic and order (B * Hq not a multiple of the pack too)."""
+    q, k, v = _qkv(b, hq, hk, s, hd, torch.float32, cuda)
+    for causal in (True, False):
+        got = ops.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
         _same(got, ref.flash_attention_ref(q, k, v, causal=causal,
                                            window=window))
+
+
+def test_bf16_call_takes_the_tensor_core_kernel(cuda):
+    """One launch per call; the bf16 call runs the wgmma kernel, the fp32
+    call the SIMT one (the kernel names in the profile)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _qkv(2, 4, 2, 128, 64, dtype, cuda)
+        ops.reset_launch_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops.flash_attention(q, k, v)
+            torch.cuda.synchronize()
+        assert ops.LAUNCHES["flash_attention"] == 1
+        names[dtype] = [e.key for e in prof.key_averages()
+                        if "flash_attention" in e.key]
+    assert len(names[torch.bfloat16]) == 1, names
+    assert "wgmma" in names[torch.bfloat16][0], names
+    assert names[torch.float32] and \
+        all("wgmma" not in n for n in names[torch.float32]), names
 
 
 def test_vmap_of_grad_launches_the_kernel_once_per_step(cuda):
@@ -264,6 +345,49 @@ def test_rmsnorm_kernel_matches_plain(cuda, g, m, d, dtype):
     flat = ops.rmsnorm(x[0], scale[0])
     torch.cuda.synchronize()
     _same(flat, ops.rmsnorm(x[0], scale[0], use_kernel=False))
+
+
+@pytest.mark.parametrize("d,dtype", [
+    (1, torch.float32), (37, torch.float32), (97, torch.bfloat16),
+    (1025, torch.float32), (4097, torch.bfloat16), (32, torch.float32),
+    (2049, torch.bfloat16), (64, torch.bfloat16)])
+def test_rmsnorm_kernel_bit_for_bit_at_odd_d_and_offsets(cuda, d, dtype):
+    """Every load shape of the kernel (short rows, rows in registers,
+    streamed rows, ragged tails) at an aligned and a misaligned start: a
+    contiguous view one element into its storage takes the scalar
+    path."""
+    gen = torch.Generator(device="cpu").manual_seed(d)
+    g, m = 3, 9
+    buf = (3.0 * torch.randn(g * m * d + 1, generator=gen)).to(cuda, dtype)
+    scale = torch.randn(g, d, generator=gen).to(cuda)
+    for x in (buf[:-1].view(g, m, d), buf[1:].view(g, m, d)):
+        assert x.is_contiguous()
+        got = ops._RMSNorm.apply(x, scale, 1e-5, True)
+        torch.cuda.synchronize()
+        _same(got, ref.rmsnorm_ref(x, scale, 1e-5))
+    # a misaligned scale row too
+    sbuf = torch.randn(g * d + 1, generator=gen).to(cuda)[1:].view(g, d)
+    _same(ops._RMSNorm.apply(x, sbuf, 1e-5, True),
+          ref.rmsnorm_ref(x, sbuf, 1e-5))
+
+
+def test_rmsnorm_vmap_keeps_one_scale_per_group(cuda):
+    """Under vmap each client's rows are normalised with its own scale,
+    bit for bit as the plain version does group by group, in one
+    launch."""
+    from torch.func import vmap
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(84, 8, 16, 32, generator=gen).to(cuda)
+    scale = torch.randn(84, 32, generator=gen).to(cuda)
+    ops.reset_launch_counts()
+    got = vmap(lambda xc, sc: ops.rmsnorm(xc, sc))(x, scale)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == 1
+    want = torch.stack([ref.rmsnorm_ref(x[c].reshape(1, -1, 32),
+                                        scale[c:c + 1], 1e-5)
+                        .reshape(x.shape[1:]) for c in range(84)])
+    _same(got, want)
 
 
 def test_rmsnorm_vmap_of_grad_launches_once_per_step(cuda):

@@ -184,6 +184,52 @@ def test_baseline_strategies_match_reference(strategy):
                                    atol=1e-5, err_msg=k)
 
 
+def test_faults_none_matches_reference():
+    """``faults="none"``, the reference registry's no-fault profile, runs
+    the sync round as ``faults=None`` does: the same run as the
+    reference's under ``"none"``, and bit for bit the port's under
+    None."""
+    jm, tm = _models("logreg")
+    train = _data("logreg")
+    jp = _init("logreg", jm)
+    jout = j_run_federated(
+        jm, train, [JClientSpec(i, M, c) for i, c in enumerate(CAPS)],
+        jstrat.FedCore(jstrat.LocalTrainer(jm, CFG["lr"], CFG["batch_size"])),
+        JFLConfig(**CFG), init_params=jp, faults="none")
+    outs = {}
+    for faults in ("none", None):
+        outs[faults] = run_federated(
+            tm, train, [ClientSpec(i, M, c) for i, c in enumerate(CAPS)],
+            FedCore(LocalTrainer(tm, CFG["lr"], CFG["batch_size"],
+                                 device="cpu")),
+            FLConfig(**CFG), init_params=params_from_jax("logreg", jp,
+                                                         device="cpu"),
+            faults=faults, device="cpu")
+    tout = outs["none"]
+    assert tout["faults"] == jout["faults"] == "none"
+    assert sum(h.n_coreset for h in tout["history"]) > 0
+    for a, b, c in zip(tout["history"], jout["history"],
+                       outs[None]["history"]):
+        assert (a.sim_round_time, a.client_times, a.n_dropped,
+                a.n_coreset, a.n_participants) == \
+            (b.sim_round_time, b.client_times, b.n_dropped, b.n_coreset,
+             b.n_participants)
+        np.testing.assert_allclose(a.train_loss, b.train_loss, atol=1e-5)
+        assert a.train_loss == c.train_loss
+    want = params_from_jax("logreg", jax.tree.map(np.asarray,
+                                                  jout["params"]),
+                           device="cpu")
+    for k, v in want.items():
+        np.testing.assert_allclose(tout["params"][k].numpy(), v.numpy(),
+                                   atol=1e-5, err_msg=k)
+        assert torch.equal(tout["params"][k], outs[None]["params"][k])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        run_federated(tm, train, [ClientSpec(i, M, c)
+                                  for i, c in enumerate(CAPS)],
+                      FedAvg(LocalTrainer(tm, 0.05, 8, device="cpu")),
+                      FLConfig(**CFG), faults="dropout", device="cpu")
+
+
 def test_port_jsonl_passes_reference_schema(tmp_path):
     jm, tm = _models("logreg")
     train = _data("logreg")

@@ -154,6 +154,41 @@ def test_run_fleet_matches_reference(workload, materialize_below, engine,
                                    err_msg=k)
 
 
+def test_faults_none_matches_reference():
+    """``faults="none"`` runs the fleet as ``faults=None`` does: the same
+    run as the reference loop engine's under ``"none"``, and bit for bit
+    the port's under None."""
+    jwl, train, test, specs, jp = _bundle("mlp")
+    jout = jb.run_fleet(jwl, train, specs, jb.FleetConfig(**CFG), ROUNDS,
+                        straggler_pct=STRAGGLER_PCT, init_params=jp,
+                        engine="loop", faults="none")
+    outs = {}
+    for faults in ("none", None):
+        outs[faults] = run_fleet(
+            get_workload("mlp"), train,
+            [ClientSpec(s.cid, s.m, s.c) for s in specs],
+            FleetConfig(**CFG), ROUNDS, straggler_pct=STRAGGLER_PCT,
+            init_params=params_from_jax("mlp", jp, device="cpu"),
+            faults=faults, device="cpu")
+    out = outs["none"]
+    assert out["faults"] == jout["faults"] == "none"
+    assert all(h.n_coreset > 0 for h in out["history"])
+    for a, b, c in zip(out["history"], jout["history"],
+                       outs[None]["history"]):
+        assert (a.sim_round_time, a.client_times, a.n_participants,
+                a.n_dropped, a.n_coreset) == \
+            (b.sim_round_time, b.client_times, b.n_participants,
+             b.n_dropped, b.n_coreset)
+        np.testing.assert_allclose(a.train_loss, b.train_loss, atol=1e-5)
+        assert a.train_loss == c.train_loss
+    want = params_from_jax("mlp", jax.tree.map(np.asarray, jout["params"]),
+                           device="cpu")
+    for k, v in want.items():
+        np.testing.assert_allclose(out["params"][k].numpy(), v.numpy(),
+                                   atol=1e-5, err_msg=k)
+        assert torch.equal(out["params"][k], outs[None]["params"][k])
+
+
 @pytest.mark.parametrize("workload", ["mlp", "cnn", "charlm"])
 def test_cohort_groups_and_budgets_equal_reference(workload):
     _, train, _, specs, _ = _bundle(workload)

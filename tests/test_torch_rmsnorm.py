@@ -6,7 +6,8 @@ held against the JAX package.
 tensor on the CPU.  It is held against the JAX Pallas op in interpret
 mode and against the JAX oracle at the JAX kernel test's shapes and
 tolerances (``_tol`` of ``tests/test_kernels.py``: 2e-5 in fp32, 2e-2 in
-bf16), with a grouped scale (one scale row per group of rows, the form
+bf16), against a numpy float32 emulation of the kernel's summation order
+bit for bit, with a grouped scale (one scale row per group of rows, the form
 the fleet's vmapped step gives it), and its gradient (dx and dscale, the
 ``autograd.Function``'s PyTorch-ops backward) against ``jax.grad`` of
 the JAX models' ``rmsnorm`` at 1e-5.  Under ``vmap(grad)`` with a
@@ -63,6 +64,61 @@ def test_plain_rmsnorm_matches_pallas_and_oracle(shape, dtype):
     for want in (pallas, oracle):
         np.testing.assert_allclose(got, np.asarray(want, np.float32),
                                    **_tol(dtype))
+
+
+def _lane_order_rmsnorm(x, scale, vec, eps=1e-5):
+    """numpy float32 emulation of the kernel's order for rows x (m, d)
+    (float32 values) and scale (d,): V = ``vec`` elements a load (4 fp32,
+    8 bf16); W = 1 warp a row up to 8 chunks of 32 V, else 8 warps; lane l
+    of the row's 32 W lanes sums x_i^2, i = c*32WV + V*l + e, over chunks
+    c and then e in order, one rounding a product and one a sum; each
+    warp's lanes meet in a butterfly, the warps' sums add in order."""
+    f = np.float32
+    m, d = x.shape
+    warps = 1 if d <= 8 * 32 * vec else 8
+    lanes = 32 * warps
+    chunk = lanes * vec
+    y = np.empty((m, d), f)
+    for r in range(m):
+        acc = np.zeros(lanes, f)
+        for lane in range(lanes):
+            a = f(0)
+            for c in range(-(-d // chunk)):
+                for e in range(vec):
+                    i = c * chunk + vec * lane + e
+                    if i < d:
+                        a = f(a + f(x[r, i] * x[r, i]))
+            acc[lane] = a
+        total = None
+        for w in range(warps):
+            s = acc[32 * w:32 * w + 32]
+            while len(s) > 1:
+                s = (s[:len(s) // 2] + s[len(s) // 2:]).astype(f)
+            total = s[0] if total is None else f(total + s[0])
+        rs = f(f(1) / f(np.sqrt(f(f(total * (f(1) / f(d))) + f(eps)))))
+        y[r] = ((x[r] * rs).astype(f) * scale).astype(f)
+    return y
+
+
+@pytest.mark.parametrize("d", [1, 32, 37, 96, 4096, 4097])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_plain_rmsnorm_repeats_the_kernel_lane_order(d, dtype):
+    """Bit for bit with a numpy emulation of the CUDA kernel's summation
+    order: short rows, one warp, eight warps, ragged tails."""
+    _, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(d)
+    x = torch.tensor(3.0 * rng.standard_normal((3, d)),
+                     dtype=torch.float32).to(tdt)
+    scale = rng.standard_normal(d).astype(np.float32)
+    got = ref.rmsnorm_ref(x[None], torch.tensor(scale)[None])[0]
+    want = _lane_order_rmsnorm(x.float().numpy(), scale,
+                               vec=4 if dtype == "float32" else 8)
+    assert torch.equal(got, torch.tensor(want).to(tdt))
+    jx = jnp.asarray(x.float().numpy()).astype(DTYPES[dtype][0])
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        np.asarray(jref.rmsnorm_ref(jx, jnp.asarray(scale)), np.float32),
+        **_tol(dtype))
 
 
 @pytest.mark.parametrize("g,m,d", [(3, 5, 40), (84, 8, 32), (2, 1, 7)])

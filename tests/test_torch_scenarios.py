@@ -14,14 +14,19 @@ train loss and parameters within 1e-5 (the conformance matrix's
 the reference.  The runtimes and arguments not ported yet raise
 ``NotImplementedError`` naming their ROADMAP items.
 
-The fleet cells avoid the scenarios whose capabilities put a near-tied
-medoid choice in front of a straggler: under ``device_classes``,
-``flash_crowd`` and ``pareto`` the mlp fleet's client 0 (k = 16 of 43)
-gets another coreset from the port than from XLA, with float64 k-medoids
-objectives equal to 15 digits (45.94240763618336), and its parameters
-drift 1.1e-5 apart; under ``device_classes`` the xlstm fleet meets such a
-tie too.  ``uniform`` and ``diurnal`` (mlp) and ``flash_crowd`` (xlstm)
-have none.
+Some scenarios' capabilities put a near-tied medoid choice in front of
+a straggler: under ``device_classes``, ``flash_crowd`` and ``pareto`` the
+mlp fleet's client 0 (k = 16 of 43) gets another coreset from the port
+than from XLA, with float64 k-medoids objectives equal to 15 digits
+(45.94240763618336), and its parameters drift 1.1e-5 apart; under
+``device_classes`` the xlstm fleet meets such a tie too.  Those cells are
+held as the North star rule holds tied optima
+(``check_tied_against_reference``): the ``RoundRecord`` timing and
+participation fields exact, every first-round coreset held by its
+float64 k-medoids objective on the port's features (equal within 1e-9
+relative) rather than by index, and no parameter or loss compared after
+the tie.  ``uniform`` and ``diurnal`` (mlp) and ``flash_crowd`` (xlstm)
+have no tie and are held in full.
 """
 import dataclasses
 
@@ -33,11 +38,14 @@ pytest.importorskip("jax")
 import jax  # noqa: E402
 import torch  # noqa: E402
 
+import repro.fed.fleet.batched as jb  # noqa: E402
 from repro.fed.fleet import scenarios as js  # noqa: E402
 from repro.fed.fleet import scheduler as jsched  # noqa: E402
 from repro.fed.fleet import workloads as jw  # noqa: E402
 from repro.obs.schema import validate_records  # noqa: E402
+import repro_torch.fed.fleet.batched as tb  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.core.kmedoids import medoid_objective_f64  # noqa: E402
 from repro_torch.fed.fleet import (SCENARIOS, AdaptiveParticipation,  # noqa: E402,E501
                                    ParticipationConfig, build_scenario,
                                    get_workload, run_scenario)
@@ -77,11 +85,12 @@ def _port_workload(name):
     return wl
 
 
-def check_against_reference(scenario, runtime, workload, engine=None):
+def check_against_reference(scenario, runtime, workload, engine=None,
+                            **extra):
     """``run_scenario`` of the port (``engine`` for the fleet runtime)
     against the JAX package's (its loop engine for the fleet runtime),
-    as the module docstring says."""
-    kw = dict(RUN, fleet_engine=engine or "batched")
+    as the module docstring says; ``extra`` goes to both."""
+    kw = dict(RUN, fleet_engine=engine or "batched", **extra)
     jout = js.run_scenario(scenario, runtime, workload=workload,
                            **dict(kw, fleet_engine="loop"))
     sink = InMemorySink()
@@ -117,6 +126,89 @@ def check_against_reference(scenario, runtime, workload, engine=None):
     ("uniform", "fleet", "loop")])
 def test_run_scenario_matches_reference(scenario, runtime, engine):
     check_against_reference(scenario, runtime, "mlp", engine)
+
+
+def check_tied_against_reference(scenario, workload, monkeypatch):
+    """A fleet cell with a near-tied medoid choice: the port's batched
+    ``run_scenario`` against the JAX package's loop engine, the timing and
+    participation fields of every ``RoundRecord`` exact, and each
+    straggler's first-round coreset held by its float64 k-medoids
+    objective over its features at the round-start parameters (the same
+    on both sides; the port's are used), within 1e-9 relative.  The tie
+    changes the coresets' training, so no parameter, loss or later
+    coreset is compared."""
+    def recorder(module):
+        rounds = []
+        inner = module.run_fleet_round
+
+        def run_fleet_round(*args, **kwargs):
+            params, stats = inner(*args, **kwargs)
+            rounds.append({int(c): np.asarray(m)
+                           for c, m in stats.medoids.items()})
+            return params, stats
+
+        monkeypatch.setattr(module, "run_fleet_round", run_fleet_round)
+        return rounds
+
+    j_medoids = recorder(jb)
+    jout = js.run_scenario(scenario, "fleet", workload=workload,
+                           **dict(RUN, fleet_engine="loop"))
+    medoids, feats = recorder(tb), {}
+    run_group = tb.FleetEngine.run_group
+
+    def recording_group(self, params, group, batched=True):
+        seen, select = [], self._select
+
+        def recording_select(f, valid, k):
+            seen.append(f)
+            return select(f, valid, k)
+
+        self._select = recording_select
+        try:
+            return run_group(self, params, group, batched)
+        finally:
+            del self._select
+            if seen and not medoids:        # the first round
+                f = torch.cat(seen)
+                for i, (cid, m) in enumerate(zip(group.cids, group.m)):
+                    feats[int(cid)] = f[i, :m].double().numpy()
+
+    monkeypatch.setattr(tb.FleetEngine, "run_group", recording_group)
+    out = run_scenario(scenario, "fleet",
+                       workload=_port_workload(workload), device="cpu",
+                       **dict(RUN, fleet_engine="batched"))
+    assert out["deadline"] == jout["deadline"]
+    assert sum(h.n_coreset for h in out["history"]) > 0
+    for a, b in zip(out["history"], jout["history"]):
+        assert a.sim_round_time == b.sim_round_time
+        assert a.client_times == b.client_times
+        assert (a.n_participants, a.n_dropped, a.n_coreset,
+                a.n_violations) == (b.n_participants, b.n_dropped,
+                                    b.n_coreset, b.n_violations)
+    got, want = medoids[0], j_medoids[0]
+    assert got and set(got) == set(want) == set(feats)
+    for cid in want:
+        assert len(got[cid]) == len(want[cid])
+        np.testing.assert_allclose(
+            medoid_objective_f64(feats[cid], got[cid]),
+            medoid_objective_f64(feats[cid], want[cid]), rtol=1e-9,
+            err_msg=f"client {cid}")
+
+
+@pytest.mark.parametrize("scenario", ["device_classes", "flash_crowd",
+                                      "pareto"])
+def test_tied_fleet_cell_matches_reference_by_objective(scenario,
+                                                        monkeypatch):
+    check_tied_against_reference(scenario, "mlp", monkeypatch)
+
+
+@pytest.mark.parametrize("runtime,engine", [("sync", None),
+                                            ("fleet", "batched")])
+def test_faults_none_matches_reference(runtime, engine):
+    """The reference registry's no-fault profile by name: the same run
+    as the reference's under ``faults="none"``."""
+    check_against_reference("uniform", runtime, "mlp", engine,
+                            faults="none")
 
 
 def test_sync_scenario_with_adaptive_participation_matches_reference():
