@@ -10,7 +10,9 @@ phases run in order and any failure exits non-zero:
    TF32 off for matrix products and cuDNN convolutions, deterministic
    cuDNN, and the build of
    the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
-   sm_90a, one process per source, compiled in parallel);
+   sm_90a, one process per source, compiled in parallel); the pairwise
+   kernel's k-loops must hold no FFMA in its SASS (``cuobjdump``; its
+   contract is a rounded product and then a rounded add a term);
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes: error, kernel / plain / library time, least time (the
    bound), at rtol 1e-5 and atol 1e-5·max|plain| (the two sum in the same
@@ -30,7 +32,12 @@ phases run in order and any failure exits non-zero:
    widths, fp32 and bf16, which must agree with the plain version
    exactly, with ``torch.nn.functional.rms_norm`` timed as the yardstick;
    the cases with a shape key (the step shapes, yi-9b) also print the
-   card's busy time a call;
+   card's busy time a call; the pairwise kernels (1 and 4) at phase 2's
+   old shapes, the sync path's largest and median client (m = 341, 39)
+   and every fleet group below the cutover that phases 6 and 8 log
+   (D = 1568 and 32), each equal to its plain version bit for bit, with
+   their busy time and ``torch.cdist``'s, both by CUDA events and by the
+   card's busy time, in the same process;
 3. the main path at full width: ``run_federated`` with ``FedCore`` on
    ``SmallCNN()`` (28x28, channels 16/32, F = 1568) over 200 pseudo-MNIST
    clients (Table 1 sizes: mean 69, std 106), 3 rounds of 10 clients,
@@ -53,7 +60,9 @@ phases run in order and any failure exits non-zero:
    with CUDA events around the gradient-feature passes, the selection
    solves and the distance-free solver's column and medoid-slab rebuilds
    (their stream time), and under ``torch.profiler`` (the device's busy
-   time; the idle share is taken against the bare wall);
+   time; the idle share is taken against the bare wall; the pairwise
+   kernel's device time, which phases 8 and 10 print too and which must
+   not be 0);
 7. the fleet A/Bs: the same 3 rounds with ``use_kernel=False`` pick the
    same medoids per (round, client) and end on bit-identical parameters;
    one round of ``engine="loop"`` picks the batched round's medoids and
@@ -175,13 +184,16 @@ KERNEL_META = {
                 "src/repro/kernels/rmsnorm.py:30"),
 }
 HEADLINE = {"pairwise_l2": (2048, 1568), "build_cost": (1, 2048),
-            "delta_sweep": (2048, 700), "pairwise_l2_batched": (16, 128),
+            "delta_sweep": (2048, 700),
+            "pairwise_l2_batched": (16, 128, 1568),
             "build_cost_from_feats": (1, 2048),
             "delta_sweep_from_feats": (1, 2048, 130),
             "flash_attention": "translm step", "rmsnorm": "yi-9b fp32"}
-# the kernels whose keyed phase-2 cases (the step shapes, yi-9b) are all
-# timed by the card's busy time, not their headline alone
-REDESIGNED = ("flash_attention", "rmsnorm")
+# the kernels whose keyed phase-2 cases (the step shapes, yi-9b, the
+# pairwise kernels' main-path shapes) are all timed by the card's busy
+# time, not their headline alone, and their library call too
+REDESIGNED = ("flash_attention", "rmsnorm", "pairwise_l2",
+              "pairwise_l2_batched")
 # the main path each kernel belongs to: its launches in the kernels line
 # are that path's (every path's counts are printed beside them)
 PATH_OF = {"pairwise_l2": "sync", "build_cost": "sync",
@@ -282,18 +294,22 @@ def compare(got, want):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_cases(dev, attn_shapes):
+def kernel_cases(dev, attn_shapes, pairwise_groups):
     """(kernel, label, shape key, run(use_kernel) -> tensors, bytes, ops,
     library call or None, peak FLOP/s of the operations' type) at the
     main paths' shapes; ``attn_shapes`` names the ``translm`` fleet's own
-    attention shapes."""
+    attention shapes, ``pairwise_groups`` the fleets' (C, M, D) selection
+    groups below the distance-free cutover."""
     import torch
 
     from repro_torch.kernels import ops
 
     g = torch.Generator(device=dev).manual_seed(0)
     cases = []
-    for m, d in ((37, 60), (1000, 1568), (2048, 1568), (2048, 128)):
+    # (341, 1568) and (39, 1568): the sync path's largest and median
+    # sampled client (mnist_like_dataset(200, seed=0) sizes 10-341)
+    for m, d in ((37, 60), (39, 1568), (341, 1568), (1000, 1568),
+                 (2048, 1568), (2048, 128)):
         x = torch.randn(m, d, generator=g, device=dev)
 
         def run(uk, x=x):
@@ -303,9 +319,10 @@ def kernel_cases(dev, attn_shapes):
         def lib(x=x):
             return torch.cdist(x, x).square()
 
+        # the operations of the full square, as the library computes it
         cases.append(("pairwise_l2", f"m={m} d={d}", (m, d), run,
                       4.0 * (m * d + m * m), 2.0 * m * m * d + 4.0 * m * m,
-                      lib, PEAK_FP32_FLOPS, None))
+                      lib, PEAK_FP32_FLOPS, "exact"))
     for c in (1, 4):
         for m in (37, 1000, 2048):
             D = torch.rand(c, m, m, generator=g, device=dev)
@@ -356,9 +373,12 @@ def kernel_cases(dev, attn_shapes):
 
     # the fleet's kernels: per-client pairwise stacks below the cutover,
     # the distance-free BUILD and Δ-sweep at and above it, at SmallCNN's
-    # feature width
-    # C=25, M=128 is the fleet's group below the cutover (phase 6)
-    for c, m, d in ((16, 128, FEATS), (3, 37, 60), (25, 128, FEATS)):
+    # feature width; kernel 4 also at every group below the cutover of
+    # phases 6 and 8 (C=25, M=128 and C=8, M=16 at D=1568; the char-LM
+    # fleets' at D=32)
+    fleet_shapes = sorted(set(pairwise_groups) - {(16, 128, FEATS),
+                                                  (3, 37, 60)})
+    for c, m, d in [(16, 128, FEATS), (3, 37, 60)] + fleet_shapes:
         x = torch.randn(c, m, d, generator=g, device=dev)
 
         def run(uk, x=x):
@@ -370,10 +390,11 @@ def kernel_cases(dev, attn_shapes):
 
         # epilogue: add, multiply, subtract, max, sqrt per output
         cases.append(("pairwise_l2_batched", f"C={c} M={m} D={d}"
-                      + (" (fleet)" if c == 25 else ""), (c, m),
+                      + (" (fleet)" if (c, m, d) in pairwise_groups
+                         else ""), (c, m, d),
                       run, 4.0 * (c * m * d + c * m * m),
                       2.0 * c * m * m * d + 5.0 * c * m * m, lib,
-                      PEAK_FP32_FLOPS, None))
+                      PEAK_FP32_FLOPS, "exact"))
     # C=22, M=256, K=64 is the fleet's main distance-free group (phase 6)
     for c, m, padded, ks in ((4, 512, False, (1, 7, 130)),
                              (4, 512, True, (7,)),
@@ -571,15 +592,20 @@ def rmsnorm_cases(dev, g):
     return cases
 
 
-def phase_kernels(dev, attn_shapes):
+def phase_kernels(dev, attn_shapes, pairwise_groups):
     """Each case's kernel against its plain version (``compare``; an
     "exact" case must agree to the bit, a callable rule is the case's own
     check), with its times; the case whose key ``HEADLINE`` names (its
     kernel's headline) and every keyed case of a ``REDESIGNED`` kernel
-    are also timed by the card's busy time."""
+    are also timed by the card's busy time, and for a ``REDESIGNED``
+    kernel so is its library call."""
+    import torch
+
+    # the first profiler session of a process may see no device activity
+    device_busy_share(lambda: torch.ones(1, device=dev).sum())
     results = {}
     for name, label, key, run, nbytes, nops, lib, peak, rule in \
-            kernel_cases(dev, attn_shapes):
+            kernel_cases(dev, attn_shapes, pairwise_groups):
         got, want = run(True), run(False)
         note = None
         if callable(rule):
@@ -617,17 +643,28 @@ def phase_kernels(dev, attn_shapes):
         _, busy, by_name = device_busy_share(
             lambda: [run(True) for _ in range(20)])
         dev_ms = None if busy is None else busy / 20 * 1e3
+        # both pairwise entry points run pairwise_l2_kernel<...>
+        kname = "pairwise_l2_kernel" if name.startswith("pairwise") else name
         ran = sorted({n.replace("(anonymous namespace)::", "")
-                      .split("(")[0][-60:] for n in by_name if name in n})
+                      .split("(")[0][-60:] for n in by_name if kname in n})
         log(f"    {key}: device busy "
             + ("not measured" if dev_ms is None else f"{dev_ms:.4f} ms")
             + f" a call (torch.profiler, 20 calls); kernels {ran}")
         if name == "flash_attention" and key.endswith("bf16"):
             check(any("wgmma" in n for n in ran),
                   f"{label}: the bf16 call ran no wgmma kernel ({ran})")
+        lib_dev_ms = None
+        if lib is not None and name in REDESIGNED:
+            _, lbusy, _ = device_busy_share(
+                lambda: [lib() for _ in range(20)])
+            lib_dev_ms = None if lbusy is None else lbusy / 20 * 1e3
+            log(f"    {key}: library device busy "
+                + ("not measured" if lib_dev_ms is None
+                   else f"{lib_dev_ms:.4f} ms")
+                + " a call (torch.profiler, 20 calls)")
         case = dict(shape=label, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                     bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                    max_abs_err=max_abs)
+                    library_device_ms=lib_dev_ms, max_abs_err=max_abs)
         r["cases"][str(key)] = case
         if key == HEADLINE[name]:
             r.update({f: v for f, v in case.items() if f != "max_abs_err"})
@@ -1068,6 +1105,19 @@ def fleet_setup(wl, clients):
     return specs, cfg, groups
 
 
+def pairwise_groups_below_cutover(wl, clients, cfg, groups, dev):
+    """(C, M, F) of each selection group below the distance-free cutover
+    (kernel 4's calls), F the workload's gradient-feature width."""
+    import torch
+
+    params = wl.init(torch.Generator().manual_seed(0), dev)
+    batch = {k: torch.as_tensor(v[:2], device=dev)
+             for k, v in clients[0].items()}
+    f = int(wl.grad_features(params, batch).shape[-1])
+    return [(g.n_clients, g.valid.shape[1], f) for g in groups
+            if g.k > 0 and g.valid.shape[1] < cfg.materialize_below]
+
+
 def log_groups(groups):
     log("  groups (M, k, C): " + ", ".join(
         f"({g.valid.shape[1]}, {g.k}, {g.n_clients})" for g in groups))
@@ -1101,6 +1151,18 @@ def bare_and_profiled(one_round, top=8):
         for name, t in sorted(by_name.items(),
                               key=lambda kv: -kv[1])[:top]))
     return bare_wall, busy, by_name
+
+
+def log_kernel_time(by_name, busy, what, match):
+    """Log the device time of a profiled round's kernels whose name holds
+    ``match``; the round must have run one (unless the profiler saw no
+    device activity at all)."""
+    if busy is None:
+        return
+    t = sum(v for name, v in by_name.items() if match in name)
+    check(t > 0, f"the profiled round ran no {what} kernel")
+    log(f"  {what} kernel: {1e3 * t:.4f} ms of device time "
+        f"({100 * t / busy:.2f}% of the busy time)")
 
 
 def fleet_main_run(wl, clients, specs, cfg, required):
@@ -1144,7 +1206,8 @@ def phase_fleet():
     def one_round():
         return run_fleet(wl, clients, specs, cfg, 1, straggler_pct=30.0)
 
-    bare_wall, _, _ = bare_and_profiled(one_round)
+    bare_wall, busy, by_name = bare_and_profiled(one_round)
+    log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
     ewall, parts = stream_time_by_part(one_round)
     log(f"  stream time by part (one more round with CUDA events, wall "
         f"{ewall:.3f} s): " + ", ".join(
@@ -1257,11 +1320,8 @@ def phase_translm(wl, clients, specs, cfg, groups):
         return run_fleet(wl, clients, specs, cfg, 1, straggler_pct=30.0)
 
     _, busy, by_name = bare_and_profiled(one_round, top=10)
-    if busy is not None:
-        attn = sum(t for name, t in by_name.items()
-                   if "flash_attention" in name)
-        log(f"  flash-attention kernel: {attn:.4f} s of device time "
-            f"({100 * attn / busy:.1f}% of the busy time)")
+    log_kernel_time(by_name, busy, "flash-attention", "flash_attention")
+    log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
     step_host_breakdown(wl, cfg, groups, torch.device("cuda"))
     return kept, launches
 
@@ -1430,10 +1490,8 @@ def phase_xlstm(wl, clients, specs, cfg, groups):
         return run_fleet(wl, clients, specs, cfg, 1, straggler_pct=30.0)
 
     _, busy, by_name = bare_and_profiled(one_round, top=10)
-    if busy is not None:
-        norm = sum(t for name, t in by_name.items() if "rmsnorm" in name)
-        log(f"  RMSNorm kernel: {norm:.4f} s of device time "
-            f"({100 * norm / busy:.1f}% of the busy time)")
+    log_kernel_time(by_name, busy, "RMSNorm", "rmsnorm")
+    log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
     step_host_breakdown(wl, cfg, groups, torch.device("cuda"),
                         kernel="rmsnorm")
     return kept, launches
@@ -1525,6 +1583,31 @@ def phase_xlstm_ab(wl, clients, specs, cfg, kept):
 
 T0 = time.time()          # the script's start, shared with its lanes
 PHASE_SECONDS = {}
+
+
+def check_pairwise_sass():
+    """The pairwise kernel's k-loops hold no FFMA (``tools/kernel_sass.py``
+    on ``cuobjdump -sass`` of the built library): its contract is a
+    rounded product and then a rounded add a term, and a multiply-add
+    contracted by some compiler would change the bits."""
+    import re
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import kernel_sass
+
+    loops = kernel_sass.fused_in_sum_loops(
+        kernel_sass.disassemble("pairwise_l2.cu"), "pairwise_l2_kernel")
+    check(bool(loops) and all(loops.values()),
+          f"no k-loop found in the pairwise kernel's SASS: {loops}")
+    for name, ffma in sorted(loops.items()):
+        t = re.search(r"pairwise_l2_kernelI((?:Li\d+E)+)Lb([01])E", name)
+        shown = (f"pairwise_l2_kernel<"
+                 + ", ".join(re.findall(r"\d+", t[1]))
+                 + f", {'true' if t[2] == '1' else 'false'}>" if t else name)
+        log(f"    {shown}: {len(ffma)} k-loop(s), FFMA in them "
+            f"{sum(ffma)}")
+    check(not any(sum(v) for v in loops.values()),
+          f"FFMA in the pairwise kernel's k-loop: {loops}")
 
 
 @contextlib.contextmanager
@@ -1726,12 +1809,21 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "error")):
                 log(f"    {name}: {line.strip()}")
+    check_pairwise_sass()
     dev = torch.device("cuda")
 
     with phase("kernels", "2: kernels against their plain versions (rtol "
                "1e-5, atol 1e-5*max|plain|)"):
-        _, _, _, tcfg, tgroups = translm_fleet()
-        kernels = phase_kernels(dev, translm_attention_shapes(tcfg, tgroups))
+        twl, tclients, _, tcfg, tgroups = translm_fleet()
+        cwl = cnn_fleet_workload()
+        cclients = cwl.make_clients()
+        _, ccfg, cgroups = fleet_setup(cwl, cclients)
+        pairwise_groups = (
+            pairwise_groups_below_cutover(cwl, cclients, ccfg, cgroups, dev)
+            + pairwise_groups_below_cutover(twl, tclients, tcfg, tgroups,
+                                            dev))
+        kernels = phase_kernels(dev, translm_attention_shapes(tcfg, tgroups),
+                                pairwise_groups)
     log(f"[{time.time() - T0:.0f} s] == phases 3-11 in three concurrent "
         f"lanes: 3-7 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 ({LANES[2]})")
     by_path, lane_phases = run_lanes()

@@ -32,13 +32,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # returns cudaGetLastError() as an int
 KERNELS = {
     "pairwise_l2": ("pairwise_l2.cu", "fedcore_pairwise_l2",
-                    [_P] * 5 + [_I] * 5 + [_P]),
+                    [_P] * 5 + [_I] * 7 + [_P]),
     "build_cost": ("build_cost.cu", "fedcore_build_cost",
                    [_P] * 4 + [_I] * 2 + [_P]),
     "delta_sweep": ("delta_sweep.cu", "fedcore_delta_sweep",
                     [_P] * 7 + [_I] * 3 + [_P]),
     "pairwise_l2_batched": ("pairwise_l2.cu", "fedcore_pairwise_l2_batched",
-                            [_P] * 3 + [_I] * 5 + [_P]),
+                            [_P] * 3 + [_I] * 6 + [_P]),
     "build_cost_from_feats": ("kmedoids_from_feats.cu",
                               "fedcore_build_cost_from_feats",
                               [_P] * 5 + [_I] * 3 + [_P]),

@@ -7,144 +7,384 @@
 // repro.kernels.ops.pairwise_l2_batched: the fleet engine's per-client
 // self-distance stacks below the distance-free cutover) with
 // fedcore_pairwise_l2_batched.  Both run the one kernel below; the batched
-// entry point adds a client index, blockIdx.z, with per-client strides
-// (the TPU kernel's leading client grid axis).
+// entry point adds a client index with per-client strides (the TPU
+// kernel's leading client grid axis).
 //
 //   out[r, c] = max(xsq[r] + ysq[c] - 2 * <x_r, y_c>, 0)   (sqrt unless squared)
 //   out[r, r] = 0 exactly when zero_diag (self-distance mode)
 //
-// Bound on an H100: compute.  The cross term is 2*m*n*d fp32 operations
-// (13.2 GFLOP at m = n = 2048, d = 1568) against 4*(m*d + n*d + m*n)
-// bytes, so at 67 TFLOP/s of non-tensor fp32 the operations, not the
-// 3.35 TB/s of memory, set the least time.  The cross term stays in full
-// fp32 (never TF32): the k-medoids medoid choice downstream compares
-// sums of these distances.  Each output accumulates over d in order,
-// k = 0, 1, ..., as a rounded product and then a rounded add
-// (__fmul_rn / __fadd_rn, never contracted to an FMA), and the epilogue
-// rounds (xsq + ysq) - 2*acc the same way: exactly the arithmetic of the
-// plain version, kernels/ref.py::pairwise_l2_ref, so the two agree bit
-// for bit and a kernel run and a plain run pick the same medoids.  The
-// price is two instructions where one FFMA would do.
+// The arithmetic contract.  Each output accumulates over d in order,
+// k = 0, 1, ..., as a rounded product and then a rounded add (__fmul_rn /
+// __fadd_rn, never contracted to an FMA), and the epilogue rounds
+// (xsq + ysq) - 2*acc the same way: exactly the arithmetic of the plain
+// version, kernels/ref.py::pairwise_l2_ref, so the two agree bit for bit
+// and a kernel run and a plain run pick the same medoids.  The cross term
+// stays in full fp32: TF32 and wgmma have no mode that keeps it.  No
+// tile splits d (split-K would reorder the sum), so no output's bits
+// depend on the tile, the grid or the number of clients.
 //
-// Bound of the batched form: C times the above, per client's (M, M) stack.
+// What bounds it on an H100.  A term costs two fp32 issue slots (FMUL,
+// FADD) where one FFMA would do, so a large matrix is bound by the fp32
+// pipes: its terms x 2 over the card's 132 SMs x 128 lanes; the bytes
+// (each row read once, each output written once) take far less at
+// 3.35 TB/s.  A small one is bound by latency: every output is a chain
+// of d dependent rounded adds, and no tile may split d to shorten it.
+// What the design does about each:
 //
-// Design: one 256-thread block owns a 64x64 output tile and walks d in
-// chunks of 16.  Each chunk of x and y is staged in shared memory,
-// transposed so a thread reads its 4 rows and 4 columns as scalars, and
-// every thread keeps a 4x4 register accumulator (16 multiply-adds per 8
-// shared loads).  Where the TPU kernel carried the accumulator across its
-// sequential k grid axis in VMEM, here the loop over d runs inside the
-// block.  Ragged edges are masked on load (zeros) and on store, so the
-// wrapper pads nothing.  The squared norms come from the wrapper, as the
-// TPU wrapper computes them with jnp.sum.  No atomics: every output is
-// written once, in a fixed order, so results are bit-identical from run
-// to run.
+// * Triangle tiles in self mode.  out[c, r] == out[r, c] to the bit (the
+//   products commute exactly, and so does xsq[r] + xsq[c]), so only the
+//   tiles with tile-col >= tile-row are launched, one block each, indexed
+//   linearly (per client, for the batched form).  An off-diagonal tile
+//   writes its block and the block's transpose, the transpose staged
+//   through shared memory so that both stores are coalesced; a diagonal
+//   tile writes itself once and applies zero_diag.  That halves the
+//   arithmetic.  With y given, the full rectangular grid runs.
+// * A tile chosen by shape (ops.pairwise_tile, from the grid alone).
+//   Square tiles of BM rows, each thread owning a TM x TM register block
+//   (rows ty + i*BM/TM, columns tx + j*BM/TM), in three configurations
+//   (`dispatch`): 32 rows with 4 x 4 blocks (64 threads) where that grid
+//   gives every SM two blocks, a warp for each of its four schedulers;
+//   else 16 rows with 2 x 2 blocks (64 threads), four times the blocks;
+//   else, where even those leave SMs idle, 16 rows with one output a
+//   thread (256 threads), whose eight warps a block hide more of each
+//   other's latency.
+// * Register blocking with 16-byte shared loads.  x and y chunks sit in
+//   shared memory as [row][k] with k-chunks of kBK; a thread reads its
+//   rows and columns along k as float4, so 2*TM LDS.128 feed 8*TM*TM
+//   multiplies and adds.  Rows are padded by 4 floats (144-byte stride):
+//   eight consecutive rows fall on eight distinct 16-byte bank groups.
+// * Asynchronous staging.  The chunks are filled by cp.async in a ring
+//   of kStages stages, so the loads of chunk k+2 overlap the arithmetic
+//   of chunk k; one __syncthreads a chunk.  Rows need no transpose in
+//   this layout.  16-byte copies need 16-byte-aligned rows (d % 4 == 0
+//   and aligned base pointers); otherwise the same ring is filled by
+//   4-byte copies (VEC = false).  Both sum in the same order.  Ragged
+//   edges are zero-filled by the copies' source size: a zero term adds
+//   an exact zero to the sum, so the bits do not change.
+// * Dynamic shared memory: the ring, reused for the transposed tile
+//   (27 KB at most, under the 48 KB that needs no opt-in).
+//
+// The squared norms come from the wrapper, as the TPU wrapper computes
+// them with jnp.sum.  No atomics: every output is written once, so the
+// results are bit-identical from run to run.
+#include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBM = 64;       // output rows per block
-constexpr int kBN = 64;       // output columns per block
-constexpr int kBK = 16;       // depth of one shared-memory chunk
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
+constexpr int kBK = 32;          // depth of one staged chunk
+constexpr int kLd = kBK + 4;     // floats a staged row takes (padding 4)
+constexpr int kStages = 3;       // chunks in flight
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ unsigned smem_addr(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 (VEC) or 4 bytes from `src` into shared memory, zeros when !ok
+template <bool VEC>
+__device__ __forceinline__ void copy_async(float* dst, const float* src,
+                                           bool ok) {
+  if constexpr (VEC) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(ok ? 4 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int BM>
+constexpr size_t smem_bytes() {
+  // the staging ring, reused after the loop for the transposed tile
+  constexpr size_t ring = sizeof(float) * kStages * 2 * BM * kLd;
+  constexpr size_t tile = sizeof(float) * BM * (BM + 1);
+  return ring > tile ? ring : tile;
+}
+
+// tiles of rows before row `r` of the upper triangle of an nt x nt grid
+__device__ __forceinline__ int triangle_start(int r, int nt) {
+  return r * nt - r * (r - 1) / 2;
+}
+
+// the t-th tile (row-major) of the upper triangle: bi <= bj
+__device__ __forceinline__ void triangle_tile(int t, int nt, int& bi,
+                                              int& bj) {
+  const double b = 2.0 * nt + 1.0;
+  int r = static_cast<int>((b - sqrt(b * b - 8.0 * t)) * 0.5);
+  r = r < 0 ? 0 : (r > nt - 1 ? nt - 1 : r);
+  while (r > 0 && triangle_start(r, nt) > t) --r;
+  while (r + 1 < nt && triangle_start(r + 1, nt) <= t) ++r;
+  bi = r;
+  bj = r + (t - triangle_start(r, nt));
+}
+
+// One thread's share of staging BM rows (from row0 on) of a (rows, d)
+// matrix, kBK columns at a time, into a [BM][kLd] stage.  A pass of the
+// block's NT threads copies kRows whole row chunks, neighbouring threads
+// along k; a thread keeps its k lane and its first row for every chunk,
+// so a chunk costs it only the copies.  Out-of-range elements become
+// zeros.
+template <int BM, int NT, bool VEC>
+struct Stager {
+  static constexpr int kW = VEC ? 4 : 1;          // floats a copy moves
+  static constexpr int kLanes = kBK / kW;         // copies a row chunk takes
+  static_assert(NT % kLanes == 0, "a pass covers whole row chunks");
+  static constexpr int kRows = NT / kLanes;       // rows a pass covers
+  static constexpr int kPasses = (BM + kRows - 1) / kRows;
+
+  const float* base;    // the matrix, for the copies that read nothing
+  const float* src;     // this thread's first row at its k lane
+  int row;              // that row within the tile
+  int k;                // this thread's k lane
+  int valid;            // rows of the matrix from that row on
+  int d;
+
+  __device__ Stager(const float* m_base, int row0, int rows, int d_, int tid)
+      : base(m_base), row(tid / kLanes), k((tid % kLanes) * kW), d(d_) {
+    valid = rows - (row0 + row);
+    src = valid > 0 ? base + static_cast<size_t>(row0 + row) * d + k : base;
+  }
+
+  __device__ __forceinline__ void copy(float* dst, int k0) const {
+    const bool k_ok = k0 + k < d;
+#pragma unroll
+    for (int p = 0; p < kPasses; ++p) {
+      if (kPasses * kRows > BM && row + p * kRows >= BM) break;
+      const bool ok = k_ok && p * kRows < valid;
+      copy_async<VEC>(dst + (row + p * kRows) * kLd + k,
+                      ok ? src + static_cast<size_t>(p * kRows) * d + k0
+                         : base,
+                      ok);
+    }
+  }
+};
+
+// One block: one BM x BM output tile of one client.  `tiles` is the
+// number of tiles a client has (the triangle's in self mode, else
+// ntr x ntc), blockIdx.x = client * tiles + tile.
+template <int BM, int TM, bool VEC>
+__global__ void __launch_bounds__((BM / TM) * (BM / TM))
 pairwise_l2_kernel(const float* __restrict__ x, const float* __restrict__ y,
                    const float* __restrict__ xsq,
                    const float* __restrict__ ysq, float* __restrict__ out,
-                   int m, int n, int d, int squared, int zero_diag) {
-  __shared__ float xs[kBK][kBM + 1];
-  __shared__ float ys[kBK][kBN + 1];
+                   int m, int n, int d, int squared, int zero_diag,
+                   int self_mode, int tiles, int ntc) {
+  constexpr int TPR = BM / TM;      // threads along a tile's side
+  constexpr int NT = TPR * TPR;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  // client of the batched form (0 for the single-matrix entry point)
-  const size_t c = blockIdx.z;
-  x += c * m * d;
-  y += c * n * d;
-  xsq += c * m;
-  ysq += c * n;
-  out += c * m * n;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    // neighbouring threads read neighbouring addresses along d
-    for (int e = tid; e < kBM * kBK; e += kThreads) {
-      const int r = e / kBK, k = e % kBK;
-      const int gr = row0 + r, gk = k0 + k;
-      xs[k][r] = (gr < m && gk < d) ? x[(size_t)gr * d + gk] : 0.f;
-    }
-    for (int e = tid; e < kBN * kBK; e += kThreads) {
-      const int r = e / kBK, k = e % kBK;
-      const int gr = col0 + r, gk = k0 + k;
-      ys[k][r] = (gr < n && gk < d) ? y[(size_t)gr * d + gk] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ys[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i], b[j]));
-    }
-    __syncthreads();
+  const int tx = tid % TPR;
+  const int ty = tid / TPR;
+  const size_t client = blockIdx.x / tiles;
+  const int t = blockIdx.x % tiles;
+  int bi, bj;
+  if (self_mode) {
+    triangle_tile(t, ntc, bi, bj);
+  } else {
+    bi = t / ntc;
+    bj = t % ntc;
   }
+  const int row0 = bi * BM;
+  const int col0 = bj * BM;
+  x += client * m * d;
+  y += client * n * d;
+  xsq += client * m;
+  ysq += client * n;
+  out += client * m * n;
 
+  float acc[TM][TM];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= m) continue;
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c >= n) continue;
-      float v = fmaxf(__fsub_rn(__fadd_rn(xsq[r], ysq[c]),
+    for (int j = 0; j < TM; ++j) acc[i][j] = 0.f;
+
+  const Stager<BM, NT, VEC> xstage(x, row0, m, d, tid);
+  const Stager<BM, NT, VEC> ystage(y, col0, n, d, tid);
+  auto stage = [&](int s, int chunk) {
+    float* xs = smem + s * 2 * BM * kLd;
+    xstage.copy(xs, chunk * kBK);
+    ystage.copy(xs + BM * kLd, chunk * kBK);
+  };
+
+  const int nchunks = (d + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nchunks) stage(s, s);
+    commit_async();
+  }
+  for (int kc = 0; kc < nchunks; ++kc) {
+    wait_async<kStages - 2>();
+    __syncthreads();
+    // the stage computed one chunk ago is free: every thread has passed
+    // the barrier above
+    const int next = kc + kStages - 1;
+    if (next < nchunks) stage(next % kStages, next);
+    commit_async();
+
+    const float* xs = smem + (kc % kStages) * 2 * BM * kLd;
+    const float* ys = xs + BM * kLd;
+#pragma unroll
+    for (int kk = 0; kk < kBK; kk += 4) {
+      float4 a[TM], b[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(xs + (ty + TPR * i) * kLd
+                                                + kk);
+#pragma unroll
+      for (int j = 0; j < TM; ++j)
+        b[j] = *reinterpret_cast<const float4*>(ys + (tx + TPR * j) * kLd
+                                                + kk);
+      // k = kk, kk+1, kk+2, kk+3 in order, for every output
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i].x, b[j].x));
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i].y, b[j].y));
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i].z, b[j].z));
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TM; ++j)
+          acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(a[i].w, b[j].w));
+    }
+  }
+  wait_async<0>();
+  __syncthreads();      // the ring is free for the transposed tile
+
+  // an off-diagonal tile of the triangle also owns the mirrored block
+  const bool mirror = self_mode && bi != bj;
+  float* tr = smem;     // tr[col][row], stride BM + 1
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int rl = ty + TPR * i;
+    const int r = row0 + rl;
+    const float xr = r < m ? xsq[r] : 0.f;
+#pragma unroll
+    for (int j = 0; j < TM; ++j) {
+      const int cl = tx + TPR * j;
+      const int c = col0 + cl;
+      const float yc = c < n ? ysq[c] : 0.f;
+      float v = fmaxf(__fsub_rn(__fadd_rn(xr, yc),
                                 __fmul_rn(2.f, acc[i][j])), 0.f);
       if (!squared) v = __fsqrt_rn(v);
       if (zero_diag && r == c) v = 0.f;
-      out[(size_t)r * n + c] = v;
+      if (r < m && c < n) out[static_cast<size_t>(r) * n + c] = v;
+      if (mirror) tr[cl * (BM + 1) + rl] = v;
     }
+  }
+  if (mirror) {
+    __syncthreads();
+    // out[col0 + cl, row0 + rl]: neighbouring threads, neighbouring rl
+#pragma unroll 4
+    for (int e = tid; e < BM * BM; e += NT) {
+      const int cl = e / BM, rl = e % BM;
+      const int r = row0 + rl, c = col0 + cl;
+      if (r < m && c < n) out[static_cast<size_t>(c) * n + r] =
+          tr[cl * (BM + 1) + rl];
+    }
+  }
+}
+
+template <int BM, int TM, bool VEC>
+int launch(const float* x, const float* y, const float* xsq,
+           const float* ysq, float* out, int c, int m, int n, int d,
+           int squared, int zero_diag, int self_mode, cudaStream_t stream) {
+  constexpr int NT = (BM / TM) * (BM / TM);
+  const long long ntr = (m + BM - 1) / BM, ntc = (n + BM - 1) / BM;
+  const long long tiles = self_mode ? ntr * (ntr + 1) / 2 : ntr * ntc;
+  if (tiles * c > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = smem_bytes<BM>();
+  static_assert(smem <= 48 * 1024, "above 48 KB needs cudaFuncSetAttribute");
+  pairwise_l2_kernel<BM, TM, VEC><<<static_cast<unsigned>(tiles * c), NT, smem, stream>>>(
+      x, y, xsq, ysq, out, m, n, d, squared, zero_diag, self_mode,
+      static_cast<int>(tiles), static_cast<int>(ntc));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM, int TM>
+int launch_aligned(const float* x, const float* y, const float* xsq,
+                   const float* ysq, float* out, int c, int m, int n, int d,
+                   int squared, int zero_diag, int self_mode,
+                   cudaStream_t stream) {
+  // 16-byte copies need every row of x and y on a 16-byte boundary
+  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0;
+  return vec ? launch<BM, TM, true>(x, y, xsq, ysq, out, c, m, n, d, squared,
+                                    zero_diag, self_mode, stream)
+             : launch<BM, TM, false>(x, y, xsq, ysq, out, c, m, n, d,
+                                     squared, zero_diag, self_mode, stream);
+}
+
+// the tile configurations (BM, TM), indexed by the entry points' `tile`;
+// kernels/ops.py::PAIRWISE_TILES lists the same, in the same order
+int dispatch(int tile, const float* x, const float* y, const float* xsq,
+             const float* ysq, float* out, int c, int m, int n, int d,
+             int squared, int zero_diag, int self_mode, cudaStream_t stream) {
+  switch (tile) {
+    case 0:
+      return launch_aligned<32, 4>(x, y, xsq, ysq, out, c, m, n, d, squared,
+                                   zero_diag, self_mode, stream);
+    case 1:
+      return launch_aligned<16, 2>(x, y, xsq, ysq, out, c, m, n, d, squared,
+                                   zero_diag, self_mode, stream);
+    case 2:
+      return launch_aligned<16, 1>(x, y, xsq, ysq, out, c, m, n, d, squared,
+                                   zero_diag, self_mode, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace
 
 // x (m, d), y (n, d), xsq (m,), ysq (n,) -> out (m, n); all fp32,
-// contiguous, on the device.  Launches on `stream`; returns
-// cudaGetLastError() so the caller can raise on a refused launch.
+// contiguous, on the device.  self_mode: y is x (and m == n), so only the
+// upper triangle of tiles runs and mirrors itself; zero_diag only in self
+// mode.  tile: an index of PAIRWISE_TILES.  Launches on `stream`; returns
+// cudaGetLastError() (or the error of a refused configuration) so the
+// caller can raise.
 extern "C" int fedcore_pairwise_l2(const float* x, const float* y,
                                    const float* xsq, const float* ysq,
                                    float* out, int m, int n, int d,
-                                   int squared, int zero_diag, void* stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  pairwise_l2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, xsq, ysq, out, m, n, d, squared, zero_diag);
-  return static_cast<int>(cudaGetLastError());
+                                   int squared, int zero_diag, int self_mode,
+                                   int tile, void* stream) {
+  return dispatch(tile, x, y, xsq, ysq, out, 1, m, n, d, squared, zero_diag,
+                  self_mode, static_cast<cudaStream_t>(stream));
 }
 
 // x (C, M, D), xsq (C, M) -> out (C, M, M): each client's self-distance
-// matrix; all fp32, contiguous, on the device.  Launches on `stream`;
+// matrix, upper triangle of tiles mirrored; all fp32, contiguous, on the
+// device.  tile: an index of PAIRWISE_TILES.  Launches on `stream`;
 // returns cudaGetLastError().
 extern "C" int fedcore_pairwise_l2_batched(const float* x, const float* xsq,
                                            float* out, int c, int m, int d,
                                            int squared, int zero_diag,
-                                           void* stream) {
-  const dim3 grid((m + kBN - 1) / kBN, (m + kBM - 1) / kBM, c);
-  pairwise_l2_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, x, xsq, xsq, out, m, m, d, squared, zero_diag);
-  return static_cast<int>(cudaGetLastError());
+                                           int tile, void* stream) {
+  return dispatch(tile, x, x, xsq, xsq, out, c, m, m, d, squared, zero_diag,
+                  1, static_cast<cudaStream_t>(stream));
 }

@@ -97,13 +97,51 @@ def _contiguous(t: torch.Tensor) -> torch.Tensor:
     return t if t.is_contiguous() else t.contiguous()
 
 
+# tile configurations of csrc/pairwise_l2.cu, in the order of its
+# ``dispatch``: (rows of a square output tile, rows of a thread's square
+# register block); a block has (rows / block rows)² threads
+PAIRWISE_TILES = ((32, 4), (16, 2), (16, 1))
+CARD_SMS = 132          # streaming multiprocessors of an H100 SXM
+
+
+def pairwise_grid(c: int, m: int, n: int, tile: int,
+                  self_mode: bool) -> int:
+    """Blocks the pairwise kernel launches for ``c`` clients' (m, n)
+    outputs at tile configuration ``tile``: one per output tile, only the
+    upper triangle's (tile-col >= tile-row) in self mode, where each
+    off-diagonal tile also writes its mirror image."""
+    bm = PAIRWISE_TILES[tile][0]
+    ntr, ntc = -(-m // bm), -(-n // bm)
+    return c * (ntr * (ntr + 1) // 2 if self_mode else ntr * ntc)
+
+
+def pairwise_tile(c: int, m: int, n: int, self_mode: bool) -> int:
+    """The tile configuration of the pairwise kernel for ``c`` clients'
+    (m, n) outputs, read from the grid alone: 32-row tiles (two warps a
+    block) where they give every SM two blocks, a warp for each of its
+    four schedulers; else 16-row tiles with 2 x 2 register blocks, four
+    times the blocks, where these give more than one block an SM; else
+    16-row tiles of 256 threads, one output each, whose eight warps a
+    block hide more of each other's latency on a card that is mostly
+    idle anyway (``tools/pairwise_tiles.py --tiles`` times every
+    configuration).  Each output sums over d in order in every
+    configuration, so every choice gives the same bits."""
+    if pairwise_grid(c, m, n, 0, self_mode) >= 2 * CARD_SMS:
+        return 0
+    return 1 if pairwise_grid(c, m, n, 1, self_mode) > CARD_SMS else 2
+
+
 def pairwise_l2(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
                 squared: bool = False, zero_diag: bool = False,
-                use_kernel: Optional[bool] = None) -> torch.Tensor:
+                use_kernel: Optional[bool] = None,
+                tile: Optional[int] = None) -> torch.Tensor:
     """Pairwise Euclidean distances (m, d) x (n, d) -> (m, n), fp32.
 
     ``zero_diag`` (self mode only) pins the self-distance diagonal to
-    exact zeros for k-medoids consumers."""
+    exact zeros for k-medoids consumers.  Without ``y`` (self mode) the
+    kernel computes the upper triangle of tiles and mirrors it.  ``tile``
+    forces an index of ``PAIRWISE_TILES`` (default: ``pairwise_tile``);
+    it changes no bit of the result."""
     self_mode = y is None
     if not resolve_use_kernel(use_kernel, x.device):
         out = ref.pairwise_l2_ref(x, y, squared=squared)
@@ -117,20 +155,25 @@ def pairwise_l2(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
     ysq = xsq if self_mode else torch.sum(y * y, dim=-1)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if out.numel():
+        if tile is None:
+            tile = pairwise_tile(1, m, n, self_mode)
         _launch("pairwise_l2", x.device, x.data_ptr(), y.data_ptr(),
                 xsq.data_ptr(), ysq.data_ptr(), out.data_ptr(), m, n, d,
-                int(squared), int(zero_diag and self_mode))
+                int(squared), int(zero_diag and self_mode), int(self_mode),
+                tile)
     return out
 
 
 def pairwise_l2_batched(x: torch.Tensor, *, squared: bool = False,
                         zero_diag: bool = False,
-                        use_kernel: Optional[bool] = None) -> torch.Tensor:
+                        use_kernel: Optional[bool] = None,
+                        tile: Optional[int] = None) -> torch.Tensor:
     """Per-client self-distance stacks (C, M, D) -> (C, M, M), fp32.
 
     The fleet engine's selection front end below the distance-free
     cutover.  ``zero_diag`` pins each client's self-distance diagonal to
-    exact zeros for k-medoids consumers."""
+    exact zeros for k-medoids consumers.  ``tile`` as in
+    ``pairwise_l2``."""
     if not resolve_use_kernel(use_kernel, x.device):
         out = ref.pairwise_l2_batched_ref(x, squared=squared)
         return zero_self_diag(out) if zero_diag else out
@@ -139,9 +182,11 @@ def pairwise_l2_batched(x: torch.Tensor, *, squared: bool = False,
     xsq = torch.sum(x * x, dim=-1)
     out = torch.empty((c, m, m), dtype=torch.float32, device=x.device)
     if out.numel():
+        if tile is None:
+            tile = pairwise_tile(c, m, m, True)
         _launch("pairwise_l2_batched", x.device, x.data_ptr(),
                 xsq.data_ptr(), out.data_ptr(), c, m, d, int(squared),
-                int(zero_diag))
+                int(zero_diag), tile)
     return out
 
 

@@ -33,17 +33,57 @@ def _same(got, want):
     assert torch.equal(got, want), float((got - want).abs().max())
 
 
-@pytest.mark.parametrize("m,d", [(37, 60), (300, 1568), (129, 128)])
+def _tiles():
+    """Every tile configuration of the pairwise kernel, and None (the
+    wrapper's chooser)."""
+    return list(range(len(ops.PAIRWISE_TILES))) + [None]
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose storage starts 4 bytes past a
+    16-byte boundary: the pairwise kernel's 4-byte copy path."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+# ragged m around the tiles' 16, 32 and 64 rows; d = 60 and 129 end on a
+# ragged k-chunk, 129 also has rows off 16-byte boundaries; (341, 1568)
+# is the sync path's largest client, 2048 phase 2's headline
+@pytest.mark.parametrize("m,d", [(37, 60), (300, 1568), (129, 128),
+                                 (1, 32), (15, 129), (17, 60), (63, 1568),
+                                 (65, 32), (129, 129), (341, 1568),
+                                 (2048, 1568)])
 def test_pairwise_kernel_matches_plain(cuda, m, d):
+    """Kernel 1 at every tile configuration, squared or not, with and
+    without a zero diagonal, in self mode (the triangle, mirrored) and with
+    a second matrix y: bit for bit its plain version, and exactly
+    symmetric in self mode."""
     g = torch.Generator(device="cpu").manual_seed(m + d)
     x = torch.randn(m, d, generator=g).to(cuda)
+    y = torch.randn(m // 2 + 3, d, generator=g).to(cuda)
     for squared in (True, False):
-        got = ops.pairwise_l2(x, squared=squared, zero_diag=True)
-        want = ops.pairwise_l2(x, squared=squared, zero_diag=True,
-                               use_kernel=False)
-        torch.cuda.synchronize()
-        _same(got, want)
-        assert bool((torch.diagonal(got) == 0).all())
+        for zero_diag in (True, False):
+            want = ops.pairwise_l2(x, squared=squared, zero_diag=zero_diag,
+                                   use_kernel=False)
+            want_y = ops.pairwise_l2(x, y, squared=squared,
+                                     use_kernel=False)
+            for tile in _tiles():
+                got = ops.pairwise_l2(x, squared=squared,
+                                      zero_diag=zero_diag, tile=tile)
+                got_y = ops.pairwise_l2(x, y, squared=squared, tile=tile)
+                torch.cuda.synchronize()
+                _same(got, want)
+                assert torch.equal(got, got.T)
+                _same(got_y, want_y)
+                if zero_diag:
+                    assert bool((torch.diagonal(got) == 0).all())
+    # storage off a 16-byte boundary: the same bits through 4-byte copies
+    _same(ops.pairwise_l2(_misaligned(x), squared=True, zero_diag=True),
+          ops.pairwise_l2(x, squared=True, zero_diag=True,
+                          use_kernel=False))
 
 
 @pytest.mark.parametrize("c,m", [(1, 37), (4, 300)])
@@ -108,18 +148,53 @@ def _masked_feats(g, c, m, f, dev):
     return (x * vf[..., None]).to(dev), vf.to(dev)
 
 
+# the fleets' groups below the cutover: (25, 128, 1568) and (8, 16, 1568)
+# of the CNN fleet, (6, 32, 32) and (11, 128, 32) of the char-LM fleets;
+# ragged M, d = 129 (rows off 16-byte boundaries) and d = 60
 @pytest.mark.parametrize("c,m,d", [(3, 37, 60), (16, 128, 144),
-                                   (2, 65, 129)])
+                                   (2, 65, 129), (25, 128, 1568),
+                                   (8, 16, 1568), (6, 32, 32),
+                                   (11, 128, 32), (2, 1, 32), (4, 15, 129),
+                                   (3, 17, 60), (2, 63, 32), (2, 65, 1568),
+                                   (1, 341, 129)])
 def test_pairwise_batched_kernel_matches_plain(cuda, c, m, d):
+    """Kernel 4 at every tile configuration, squared or not, with and
+    without a zero diagonal: bit for bit its plain version, and each
+    client's matrix exactly symmetric."""
     g = torch.Generator(device="cpu").manual_seed(c * m + d)
     x = torch.randn(c, m, d, generator=g).to(cuda)
     for squared in (True, False):
-        got = ops.pairwise_l2_batched(x, squared=squared, zero_diag=True)
-        want = ops.pairwise_l2_batched(x, squared=squared, zero_diag=True,
-                                       use_kernel=False)
+        for zero_diag in (True, False):
+            want = ops.pairwise_l2_batched(x, squared=squared,
+                                           zero_diag=zero_diag,
+                                           use_kernel=False)
+            for tile in _tiles():
+                got = ops.pairwise_l2_batched(x, squared=squared,
+                                              zero_diag=zero_diag,
+                                              tile=tile)
+                torch.cuda.synchronize()
+                _same(got, want)
+                assert torch.equal(got, got.transpose(1, 2))
+                if zero_diag:
+                    assert bool((torch.diagonal(got, dim1=1,
+                                                dim2=2) == 0).all())
+
+
+def test_pairwise_batched_client_is_its_own_matrix(cuda):
+    """The loop-vs-batched engine invariant: client i of a C = 25 kernel-4
+    stack (the CNN fleet's group below the cutover) equals kernel 4 at
+    C = 1 on that client and kernel 1 on it, bit for bit, whatever tiles
+    the three calls get."""
+    g = torch.Generator(device="cpu").manual_seed(25)
+    x = torch.randn(25, 128, 1568, generator=g).to(cuda)
+    stack = ops.pairwise_l2_batched(x, zero_diag=True)
+    for i in range(x.shape[0]):
+        one = ops.pairwise_l2_batched(x[i:i + 1].contiguous(),
+                                      zero_diag=True)
+        single = ops.pairwise_l2(x[i].contiguous(), zero_diag=True)
         torch.cuda.synchronize()
-        _same(got, want)
-        assert bool((torch.diagonal(got, dim1=1, dim2=2) == 0).all())
+        _same(stack[i], one[0])
+        _same(stack[i], single)
 
 
 @pytest.mark.parametrize("c,m,f", [(2, 40, 129), (3, 300, 64),
