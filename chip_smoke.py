@@ -272,6 +272,16 @@ def bound(nbytes: float, nops: float, peak_flops: float = PEAK_FP32_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def pairwise_floor_ms(key) -> float:
+    """The least time of a pairwise kernel's terms under its contract: a
+    rounded multiply and a rounded add take two fp32 issue slots a term,
+    where the peak counts an FFMA (two operations) in one, so the floor
+    is 4 operations a term over the fp32 peak.  ``key`` is (m, d) or
+    (C, M, D); self mode sums each client's triangle."""
+    c, m, d = key if len(key) == 3 else (1, *key)
+    return 4.0 * c * m * (m + 1) / 2 * d / PEAK_FP32_FLOPS * 1e3
+
+
 def compare(got, want):
     """(max abs err, max rel err, within tolerance).  The 1e30 masks of
     padded candidates must be equal exactly and are left out of the
@@ -319,9 +329,13 @@ def kernel_cases(dev, attn_shapes, pairwise_groups):
         def lib(x=x):
             return torch.cdist(x, x).square()
 
-        # the operations of the full square, as the library computes it
+        # the function's operations: the norms, and a multiply-add a term
+        # and the epilogue (add, multiply, subtract, max) for each output
+        # of the triangle, the other half being its mirror image
+        tri = m * (m + 1) / 2
         cases.append(("pairwise_l2", f"m={m} d={d}", (m, d), run,
-                      4.0 * (m * d + m * m), 2.0 * m * m * d + 4.0 * m * m,
+                      4.0 * (m * d + m * m),
+                      2.0 * m * d + tri * (2.0 * d + 4.0),
                       lib, PEAK_FP32_FLOPS, "exact"))
     for c in (1, 4):
         for m in (37, 1000, 2048):
@@ -388,12 +402,14 @@ def kernel_cases(dev, attn_shapes, pairwise_groups):
         def lib(x=x):
             return torch.cdist(x, x)
 
-        # epilogue: add, multiply, subtract, max, sqrt per output
+        # as kernel 1's, over each client's triangle; the epilogue adds
+        # a square root
+        tri = c * m * (m + 1) / 2
         cases.append(("pairwise_l2_batched", f"C={c} M={m} D={d}"
                       + (" (fleet)" if (c, m, d) in pairwise_groups
                          else ""), (c, m, d),
                       run, 4.0 * (c * m * d + c * m * m),
-                      2.0 * c * m * m * d + 5.0 * c * m * m, lib,
+                      2.0 * c * m * d + tri * (2.0 * d + 5.0), lib,
                       PEAK_FP32_FLOPS, "exact"))
     # C=22, M=256, K=64 is the fleet's main distance-free group (phase 6)
     for c, m, padded, ks in ((4, 512, False, (1, 7, 130)),
@@ -629,6 +645,9 @@ def phase_kernels(dev, attn_shapes, pairwise_groups):
             f"bound {b_ms:.4f} ms ({b_by}) {'ok' if ok else 'MISMATCH'}")
         if note:
             log(f"    {note}")
+        if name.startswith("pairwise"):
+            log(f"    {key}: floor under the kernel's contract "
+                f"{pairwise_floor_ms(key):.4f} ms")
         check(ok, f"{name} {label}: kernel disagrees with its plain version "
               f"(max abs {max_abs:.3e})")
         r = results.setdefault(name, {"max_abs_err": 0.0,

@@ -41,13 +41,10 @@
 //   arithmetic.  With y given, the full rectangular grid runs.
 // * A tile chosen by shape (ops.pairwise_tile, from the grid alone).
 //   Square tiles of BM rows, each thread owning a TM x TM register block
-//   (rows ty + i*BM/TM, columns tx + j*BM/TM), in three configurations
+//   (rows ty + i*BM/TM, columns tx + j*BM/TM), in two configurations
 //   (`dispatch`): 32 rows with 4 x 4 blocks (64 threads) where that grid
 //   gives every SM two blocks, a warp for each of its four schedulers;
-//   else 16 rows with 2 x 2 blocks (64 threads), four times the blocks;
-//   else, where even those leave SMs idle, 16 rows with one output a
-//   thread (256 threads), whose eight warps a block hide more of each
-//   other's latency.
+//   else 16 rows with 2 x 2 blocks (64 threads), four times the blocks.
 // * Register blocking with 16-byte shared loads.  x and y chunks sit in
 //   shared memory as [row][k] with k-chunks of kBK; a thread reads its
 //   rows and columns along k as float4, so 2*TM LDS.128 feed 8*TM*TM
@@ -144,7 +141,8 @@ struct Stager {
   static constexpr int kLanes = kBK / kW;         // copies a row chunk takes
   static_assert(NT % kLanes == 0, "a pass covers whole row chunks");
   static constexpr int kRows = NT / kLanes;       // rows a pass covers
-  static constexpr int kPasses = (BM + kRows - 1) / kRows;
+  static_assert(BM % kRows == 0, "passes cover whole tiles");
+  static constexpr int kPasses = BM / kRows;
 
   const float* base;    // the matrix, for the copies that read nothing
   const float* src;     // this thread's first row at its k lane
@@ -163,7 +161,6 @@ struct Stager {
     const bool k_ok = k0 + k < d;
 #pragma unroll
     for (int p = 0; p < kPasses; ++p) {
-      if (kPasses * kRows > BM && row + p * kRows >= BM) break;
       const bool ok = k_ok && p * kRows < valid;
       copy_async<VEC>(dst + (row + p * kRows) * kLd + k,
                       ok ? src + static_cast<size_t>(p * kRows) * d + k0
@@ -351,9 +348,6 @@ int dispatch(int tile, const float* x, const float* y, const float* xsq,
                                    zero_diag, self_mode, stream);
     case 1:
       return launch_aligned<16, 2>(x, y, xsq, ysq, out, c, m, n, d, squared,
-                                   zero_diag, self_mode, stream);
-    case 2:
-      return launch_aligned<16, 1>(x, y, xsq, ysq, out, c, m, n, d, squared,
                                    zero_diag, self_mode, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

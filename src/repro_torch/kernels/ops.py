@@ -15,6 +15,7 @@ kernel), so a run can show that the main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 import inspect
 from typing import Dict, Optional
 
@@ -100,8 +101,13 @@ def _contiguous(t: torch.Tensor) -> torch.Tensor:
 # tile configurations of csrc/pairwise_l2.cu, in the order of its
 # ``dispatch``: (rows of a square output tile, rows of a thread's square
 # register block); a block has (rows / block rows)² threads
-PAIRWISE_TILES = ((32, 4), (16, 2), (16, 1))
-CARD_SMS = 132          # streaming multiprocessors of an H100 SXM
+PAIRWISE_TILES = ((32, 4), (16, 2))
+
+
+@functools.lru_cache(maxsize=None)
+def card_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA card ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def pairwise_grid(c: int, m: int, n: int, tile: int,
@@ -115,48 +121,63 @@ def pairwise_grid(c: int, m: int, n: int, tile: int,
     return c * (ntr * (ntr + 1) // 2 if self_mode else ntr * ntc)
 
 
-def pairwise_tile(c: int, m: int, n: int, self_mode: bool) -> int:
+def pairwise_tile(c: int, m: int, n: int, self_mode: bool, sms: int) -> int:
     """The tile configuration of the pairwise kernel for ``c`` clients'
-    (m, n) outputs, read from the grid alone: 32-row tiles (two warps a
-    block) where they give every SM two blocks, a warp for each of its
-    four schedulers; else 16-row tiles with 2 x 2 register blocks, four
-    times the blocks, where these give more than one block an SM; else
-    16-row tiles of 256 threads, one output each, whose eight warps a
-    block hide more of each other's latency on a card that is mostly
-    idle anyway (``tools/pairwise_tiles.py --tiles`` times every
-    configuration).  Each output sums over d in order in every
-    configuration, so every choice gives the same bits."""
-    if pairwise_grid(c, m, n, 0, self_mode) >= 2 * CARD_SMS:
-        return 0
-    return 1 if pairwise_grid(c, m, n, 1, self_mode) > CARD_SMS else 2
+    (m, n) outputs on a card of ``sms`` SMs, read from the grid alone:
+    32-row tiles (two warps a block) where they give every SM two blocks,
+    a warp for each of its four schedulers; else 16-row tiles, four times
+    the blocks (``tools/pairwise_tiles.py --tiles`` times both).  Each
+    output sums over d in order in both, so either gives the same bits."""
+    return 0 if pairwise_grid(c, m, n, 0, self_mode) >= 2 * sms else 1
 
 
 def pairwise_l2(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
                 squared: bool = False, zero_diag: bool = False,
-                use_kernel: Optional[bool] = None,
-                tile: Optional[int] = None) -> torch.Tensor:
+                use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Pairwise Euclidean distances (m, d) x (n, d) -> (m, n), fp32.
 
     ``zero_diag`` (self mode only) pins the self-distance diagonal to
     exact zeros for k-medoids consumers.  Without ``y`` (self mode) the
-    kernel computes the upper triangle of tiles and mirrors it.  ``tile``
-    forces an index of ``PAIRWISE_TILES`` (default: ``pairwise_tile``);
-    it changes no bit of the result."""
-    self_mode = y is None
+    kernel computes the upper triangle of tiles and mirrors it."""
     if not resolve_use_kernel(use_kernel, x.device):
         out = ref.pairwise_l2_ref(x, y, squared=squared)
-        return zero_self_diag(out) if zero_diag and self_mode else out
+        return zero_self_diag(out) if zero_diag and y is None else out
+    return _pairwise_l2_launch(x, y, squared, zero_diag, None)
+
+
+def _pairwise_tile(tile: Optional[int], c: int, m: int, n: int,
+                   self_mode: bool, device: torch.device) -> int:
+    """``tile``, or the chooser's where it is ``None``; raises for a tile
+    the kernel does not have and for a tensor off the card."""
+    if tile is not None and not 0 <= tile < len(PAIRWISE_TILES):
+        raise ValueError(f"pairwise tile {tile}: expected an index of "
+                         f"PAIRWISE_TILES {PAIRWISE_TILES}")
+    if device.type != "cuda":
+        raise ValueError(f"the pairwise kernel needs tensors on a CUDA "
+                         f"device, got {device}")
+    if tile is None:
+        return pairwise_tile(c, m, n, self_mode, card_sms(device))
+    return tile
+
+
+def _pairwise_l2_launch(x: torch.Tensor, y: Optional[torch.Tensor],
+                        squared: bool, zero_diag: bool,
+                        tile: Optional[int]) -> torch.Tensor:
+    """Kernel 1 on the card at tile configuration ``tile`` (an index of
+    ``PAIRWISE_TILES``; ``None``: ``pairwise_tile``'s).  No tile changes a
+    bit of the result; the card tests and ``tools/pairwise_tiles.py``
+    force each one."""
+    self_mode = y is None
     y = x if self_mode else y
     m, d = x.shape
     n = y.shape[0]
     _check("pairwise_l2 x", x, (m, d), x.device)
     _check("pairwise_l2 y", y, (n, d), x.device)
+    tile = _pairwise_tile(tile, 1, m, n, self_mode, x.device)
     xsq = torch.sum(x * x, dim=-1)
     ysq = xsq if self_mode else torch.sum(y * y, dim=-1)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if out.numel():
-        if tile is None:
-            tile = pairwise_tile(1, m, n, self_mode)
         _launch("pairwise_l2", x.device, x.data_ptr(), y.data_ptr(),
                 xsq.data_ptr(), ysq.data_ptr(), out.data_ptr(), m, n, d,
                 int(squared), int(zero_diag and self_mode), int(self_mode),
@@ -166,24 +187,29 @@ def pairwise_l2(x: torch.Tensor, y: Optional[torch.Tensor] = None, *,
 
 def pairwise_l2_batched(x: torch.Tensor, *, squared: bool = False,
                         zero_diag: bool = False,
-                        use_kernel: Optional[bool] = None,
-                        tile: Optional[int] = None) -> torch.Tensor:
+                        use_kernel: Optional[bool] = None) -> torch.Tensor:
     """Per-client self-distance stacks (C, M, D) -> (C, M, M), fp32.
 
     The fleet engine's selection front end below the distance-free
     cutover.  ``zero_diag`` pins each client's self-distance diagonal to
-    exact zeros for k-medoids consumers.  ``tile`` as in
-    ``pairwise_l2``."""
+    exact zeros for k-medoids consumers."""
     if not resolve_use_kernel(use_kernel, x.device):
         out = ref.pairwise_l2_batched_ref(x, squared=squared)
         return zero_self_diag(out) if zero_diag else out
+    return _pairwise_l2_batched_launch(x, squared, zero_diag, None)
+
+
+def _pairwise_l2_batched_launch(x: torch.Tensor, squared: bool,
+                                zero_diag: bool,
+                                tile: Optional[int]) -> torch.Tensor:
+    """Kernel 4 on the card at tile configuration ``tile``, as
+    ``_pairwise_l2_launch``."""
     c, m, d = x.shape
     _check("pairwise_l2_batched x", x, (c, m, d), x.device)
+    tile = _pairwise_tile(tile, c, m, m, True, x.device)
     xsq = torch.sum(x * x, dim=-1)
     out = torch.empty((c, m, m), dtype=torch.float32, device=x.device)
     if out.numel():
-        if tile is None:
-            tile = pairwise_tile(c, m, m, True)
         _launch("pairwise_l2_batched", x.device, x.data_ptr(),
                 xsq.data_ptr(), out.data_ptr(), c, m, d, int(squared),
                 int(zero_diag), tile)

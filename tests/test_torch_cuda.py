@@ -71,9 +71,9 @@ def test_pairwise_kernel_matches_plain(cuda, m, d):
             want_y = ops.pairwise_l2(x, y, squared=squared,
                                      use_kernel=False)
             for tile in _tiles():
-                got = ops.pairwise_l2(x, squared=squared,
-                                      zero_diag=zero_diag, tile=tile)
-                got_y = ops.pairwise_l2(x, y, squared=squared, tile=tile)
+                got = ops._pairwise_l2_launch(x, None, squared, zero_diag,
+                                              tile)
+                got_y = ops._pairwise_l2_launch(x, y, squared, False, tile)
                 torch.cuda.synchronize()
                 _same(got, want)
                 assert torch.equal(got, got.T)
@@ -169,9 +169,8 @@ def test_pairwise_batched_kernel_matches_plain(cuda, c, m, d):
                                            zero_diag=zero_diag,
                                            use_kernel=False)
             for tile in _tiles():
-                got = ops.pairwise_l2_batched(x, squared=squared,
-                                              zero_diag=zero_diag,
-                                              tile=tile)
+                got = ops._pairwise_l2_batched_launch(x, squared,
+                                                      zero_diag, tile)
                 torch.cuda.synchronize()
                 _same(got, want)
                 assert torch.equal(got, got.transpose(1, 2))

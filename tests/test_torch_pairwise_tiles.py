@@ -100,14 +100,18 @@ def _main_path_shapes():
                (4, 64), (5, 64), (1, 128), (11, 128), (7, 128)])
 
 
+H100_SMS = 132          # streaming multiprocessors of an H100 SXM
+
+
 def test_chooser_fills_a_wave_or_takes_every_tile():
-    """At every main-path shape the chosen tile gives at least one block
-    an SM, or, where no configuration can, the most blocks any gives."""
+    """At every main-path shape the chosen tile gives an H100 at least one
+    block an SM, or, where no configuration can, the most blocks any
+    gives."""
     for c, m in _main_path_shapes():
-        tile = ops.pairwise_tile(c, m, m, True)
+        tile = ops.pairwise_tile(c, m, m, True, H100_SMS)
         grids = [ops.pairwise_grid(c, m, m, t, True)
                  for t in range(len(ops.PAIRWISE_TILES))]
-        assert grids[tile] >= ops.CARD_SMS or grids[tile] == max(grids), \
+        assert grids[tile] >= H100_SMS or grids[tile] == max(grids), \
             (c, m, ops.PAIRWISE_TILES[tile], grids)
 
 
@@ -134,26 +138,35 @@ def test_grid_is_the_triangle_and_covers_each_output_once(tile):
             c * nt * -(-n // bm)
 
 
-def test_tile_is_ignored_by_the_plain_versions():
-    """On the CPU the wrappers run their plain versions whatever tile is
-    forced: the tile changes no bit."""
+def test_forced_tile_is_checked_before_any_launch():
+    """The private launchers the card tests force tiles through refuse a
+    tile the kernel does not have, and a tensor off the card, before they
+    build or launch anything; the public wrappers take no tile and run
+    their plain versions on the CPU."""
     x = _x((3, 20, 17), 7)
-    want = ops.pairwise_l2_batched(x, zero_diag=True)
-    want1 = ops.pairwise_l2(x[0], squared=True, zero_diag=True)
-    for tile in range(len(ops.PAIRWISE_TILES)):
-        assert torch.equal(ops.pairwise_l2_batched(x, zero_diag=True,
-                                                   tile=tile), want)
-        assert torch.equal(ops.pairwise_l2(x[0], squared=True,
-                                           zero_diag=True, tile=tile), want1)
+    for tile in (-1, len(ops.PAIRWISE_TILES)):
+        with pytest.raises(ValueError, match="PAIRWISE_TILES"):
+            ops._pairwise_l2_batched_launch(x, False, True, tile)
+        with pytest.raises(ValueError, match="PAIRWISE_TILES"):
+            ops._pairwise_l2_launch(x[0], None, True, True, tile)
+    for tile in (None, 0):
+        with pytest.raises(ValueError, match="CUDA"):
+            ops._pairwise_l2_batched_launch(x, False, True, tile)
+        with pytest.raises(ValueError, match="CUDA"):
+            ops._pairwise_l2_launch(x[0], x[1], True, False, tile)
+    assert torch.equal(ops.pairwise_l2_batched(x, zero_diag=True),
+                       ops.zero_self_diag(ref.pairwise_l2_batched_ref(x)))
+    with pytest.raises(TypeError):
+        ops.pairwise_l2(x[0], tile=0)
 
 
 @pytest.mark.parametrize("c,m,tile", [
     (1, 2048, (32, 4)), (1, 1000, (32, 4)), (50, 128, (32, 4)),
     (1, 341, (16, 2)), (16, 128, (16, 2)), (25, 128, (16, 2)),
-    (1, 39, (16, 1)), (1, 200, (16, 1)), (8, 16, (16, 1))])
+    (1, 39, (16, 2)), (1, 200, (16, 2)), (8, 16, (16, 2))])
 def test_chooser_picks_by_blocks_an_sm(c, m, tile):
-    """32-row tiles where they give every SM two blocks, 16-row 2 x 2
-    blocks where these give more than one block an SM, else 16-row tiles
-    of 256 threads (the configuration each of these shapes ran fastest
-    in on an H100, ``tools/pairwise_tiles.py --tiles``)."""
-    assert ops.PAIRWISE_TILES[ops.pairwise_tile(c, m, m, True)] == tile
+    """On an H100, 32-row tiles where they give every SM two blocks, else
+    16-row tiles with 2 x 2 register blocks
+    (``tools/pairwise_tiles.py --tiles`` times both at these shapes)."""
+    assert ops.PAIRWISE_TILES[ops.pairwise_tile(c, m, m, True,
+                                                H100_SMS)] == tile

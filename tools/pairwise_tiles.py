@@ -136,18 +136,22 @@ def main() -> int:
             x = x[0]
 
             def run(uk=None, tile=None, x=x):
-                kw = {} if tile is None else {"tile": tile}
+                if tile is not None:
+                    return ops._pairwise_l2_launch(x, None, True, True,
+                                                   tile)
                 return ops.pairwise_l2(x, squared=True, zero_diag=True,
-                                       use_kernel=uk, **kw)
+                                       use_kernel=uk)
 
             def lib(x=x):
                 return torch.cdist(x, x).square()
             label = f"kernel 1, m={m} d={d}"
         else:
             def run(uk=None, tile=None, x=x):
-                kw = {} if tile is None else {"tile": tile}
+                if tile is not None:
+                    return ops._pairwise_l2_batched_launch(x, False, True,
+                                                           tile)
                 return ops.pairwise_l2_batched(x, zero_diag=True,
-                                               use_kernel=uk, **kw)
+                                               use_kernel=uk)
 
             def lib(x=x):
                 return torch.cdist(x, x)
@@ -161,7 +165,8 @@ def main() -> int:
                "library_ms": events_ms(lib),
                "library_device_ms": device_ms(lib)}
         if tiles is not None:
-            chosen = ops.pairwise_tile(max(c, 1), m, m, True)
+            chosen = ops.pairwise_tile(max(c, 1), m, m, True,
+                                       ops.card_sms(dev))
             row["tile"] = list(tiles[chosen])
             if args.tiles:
                 row["tiles"] = {}
