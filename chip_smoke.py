@@ -11,7 +11,8 @@ phases run in order and any failure exits non-zero:
    cuDNN, and the build of
    the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a, one process per source, compiled in parallel); the pairwise
-   kernel's k-loops must hold no FFMA in its SASS (``cuobjdump``; its
+   kernel's k-loops, and the k- and i-loops of the distance-free
+   kernels' passes, must hold no FFMA in their SASS (``cuobjdump``; their
    contract is a rounded product and then a rounded add a term);
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes: error, kernel / plain / library time, least time (the
@@ -37,7 +38,11 @@ phases run in order and any failure exits non-zero:
    and every fleet group below the cutover that phases 6 and 8 log
    (D = 1568 and 32), each equal to its plain version bit for bit, with
    their busy time and ``torch.cdist``'s, both by CUDA events and by the
-   card's busy time, in the same process;
+   card's busy time, in the same process; the distance-free kernels (5
+   and 6) at phase 2's old shapes and at every selection group of the
+   char-LM fleets at or above the cutover (F = 32), each equal to its
+   plain version bit for bit, with their busy time and the floor of
+   their distance pass;
 3. the main path at full width: ``run_federated`` with ``FedCore`` on
    ``SmallCNN()`` (28x28, channels 16/32, F = 1568) over 200 pseudo-MNIST
    clients (Table 1 sizes: mean 69, std 106), 3 rounds of 10 clients,
@@ -186,14 +191,16 @@ KERNEL_META = {
 HEADLINE = {"pairwise_l2": (2048, 1568), "build_cost": (1, 2048),
             "delta_sweep": (2048, 700),
             "pairwise_l2_batched": (16, 128, 1568),
-            "build_cost_from_feats": (1, 2048),
-            "delta_sweep_from_feats": (1, 2048, 130),
+            "build_cost_from_feats": (1, 2048, 1568),
+            "delta_sweep_from_feats": (1, 2048, 1568, 130),
             "flash_attention": "translm step", "rmsnorm": "yi-9b fp32"}
 # the kernels whose keyed phase-2 cases (the step shapes, yi-9b, the
-# pairwise kernels' main-path shapes) are all timed by the card's busy
-# time, not their headline alone, and their library call too
+# pairwise and distance-free kernels' main-path shapes) are all timed by
+# the card's busy time, not their headline alone, and their library call
+# too
 REDESIGNED = ("flash_attention", "rmsnorm", "pairwise_l2",
-              "pairwise_l2_batched")
+              "pairwise_l2_batched", "build_cost_from_feats",
+              "delta_sweep_from_feats")
 # the main path each kernel belongs to: its launches in the kernels line
 # are that path's (every path's counts are printed beside them)
 PATH_OF = {"pairwise_l2": "sync", "build_cost": "sync",
@@ -304,12 +311,14 @@ def compare(got, want):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_cases(dev, attn_shapes, pairwise_groups):
+def kernel_cases(dev, attn_shapes, pairwise_groups, from_feats_groups):
     """(kernel, label, shape key, run(use_kernel) -> tensors, bytes, ops,
-    library call or None, peak FLOP/s of the operations' type) at the
-    main paths' shapes; ``attn_shapes`` names the ``translm`` fleet's own
-    attention shapes, ``pairwise_groups`` the fleets' (C, M, D) selection
-    groups below the distance-free cutover."""
+    library call or None, peak FLOP/s of the operations' type, rule) at
+    the main paths' shapes; ``attn_shapes`` names the ``translm`` fleet's
+    own attention shapes, ``pairwise_groups`` the fleets' (C, M, D)
+    selection groups below the distance-free cutover,
+    ``from_feats_groups`` the char-LM fleets' (C, M, F, k) groups at or
+    above it."""
     import torch
 
     from repro_torch.kernels import ops
@@ -411,30 +420,42 @@ def kernel_cases(dev, attn_shapes, pairwise_groups):
                       run, 4.0 * (c * m * d + c * m * m),
                       2.0 * c * m * d + tri * (2.0 * d + 5.0), lib,
                       PEAK_FP32_FLOPS, "exact"))
-    # C=22, M=256, K=64 is the fleet's main distance-free group (phase 6)
-    for c, m, padded, ks in ((4, 512, False, (1, 7, 130)),
-                             (4, 512, True, (7,)),
-                             (1, 2048, False, (1, 7, 130)),
-                             (22, 256, False, (64,))):
-        x = torch.randn(c, m, FEATS, generator=g, device=dev)
+    # C=22, M=256, K=64 is the CNN fleet's main distance-free group
+    # (phase 6); the char-LM fleets' groups at F = 32 (phase 8) follow
+    shapes = [(4, 512, FEATS, False, (1, 7, 130)),
+              (4, 512, FEATS, True, (7,)),
+              (1, 2048, FEATS, False, (1, 7, 130)),
+              (22, 256, FEATS, False, (64,))]
+    lm = {}
+    for c, m, f, k in from_feats_groups:
+        lm.setdefault((c, m, f), []).append(k)
+    shapes += [(c, m, f, False, tuple(ks)) for (c, m, f), ks in lm.items()]
+    for c, m, f, padded, ks in shapes:
+        x = torch.randn(c, m, f, generator=g, device=dev)
         vf = torch.ones(c, m, device=dev)
         if padded:      # ragged clients: a zeroed tail of padded rows
             n = torch.randint(m // 2, m + 1, (c,), generator=g, device=dev)
             vf = (torch.arange(m, device=dev)[None] < n[:, None]).float()
             x = x * vf[..., None]
         dn = 60.0 * torch.rand(c, m, generator=g, device=dev)
-        tag = (f"C={c} M={m}" + (" padded" if padded else "")
-               + (" (fleet)" if (c, m) == (22, 256) else ""))
+        fleet = (" (fleet)" if (c, m) == (22, 256) or (c, m, f) in lm
+                 else "")
+        tag = (f"C={c} M={m} F={f}" + (" padded" if padded else "")
+               + fleet)
+        key = (c, m, f) + (("padded",) if padded else ())
 
         def run(uk, x=x, dn=dn, vf=vf):
             return (ops.kmedoids_build_cost_from_feats(x, dn, vf,
                                                        use_kernel=uk),)
 
-        # per (i, j): the 2F dot, 5 epilogue and 3 BUILD operations
-        cases.append(("build_cost_from_feats", tag, (c, m), run,
-                      4.0 * (c * m * FEATS + 3 * c * m),
-                      (2.0 * FEATS + 8.0) * c * m * m, None,
-                      PEAK_FP32_FLOPS, None))
+        # the norms; over each client's triangle the 2F dot and the 5
+        # epilogue operations (the other half is its mirror); per (i, j)
+        # the 3 BUILD operations
+        tri = c * m * (m + 1) / 2
+        cases.append(("build_cost_from_feats", tag, key, run,
+                      4.0 * (c * m * f + 3 * c * m),
+                      2.0 * c * m * f + tri * (2.0 * f + 5.0)
+                      + 3.0 * c * m * m, None, PEAK_FP32_FLOPS, "exact"))
         d1 = 60.0 * torch.rand(c, m, generator=g, device=dev)
         d2 = d1 + 10.0 * torch.rand(c, m, generator=g, device=dev)
         for k in ks:
@@ -445,14 +466,16 @@ def kernel_cases(dev, attn_shapes, pairwise_groups):
                 return ops.kmedoids_delta_sweep_from_feats(
                     x, d1, d2, vf, oh, use_kernel=uk)
 
-            # per (i, j): the 2F dot, 5 epilogue, 4 A and 4 contrib
-            # operations; one multiply-add per one-hot nonzero and j
+            # the norms and the triangle as above; per (i, j) 4 A and 4
+            # contrib operations; one multiply-add per one-hot nonzero
+            # and j
             nnz = float((oh != 0).sum())
             cases.append(("delta_sweep_from_feats", f"{tag} K={k}",
-                          (c, m, k), run,
-                          4.0 * (c * m * FEATS + 4 * c * m + 2 * c * m * k),
-                          (2.0 * FEATS + 13.0) * c * m * m
-                          + 2.0 * nnz * m, None, PEAK_FP32_FLOPS, None))
+                          key[:3] + (k,) + key[3:], run,
+                          4.0 * (c * m * f + 4 * c * m + 2 * c * m * k),
+                          2.0 * c * m * f + tri * (2.0 * f + 5.0)
+                          + 8.0 * c * m * m + 2.0 * nnz * m, None,
+                          PEAK_FP32_FLOPS, "exact"))
     cases += attention_cases(dev, g, attn_shapes)
     cases += rmsnorm_cases(dev, g)
     return cases
@@ -608,7 +631,7 @@ def rmsnorm_cases(dev, g):
     return cases
 
 
-def phase_kernels(dev, attn_shapes, pairwise_groups):
+def phase_kernels(dev, attn_shapes, pairwise_groups, from_feats_groups):
     """Each case's kernel against its plain version (``compare``; an
     "exact" case must agree to the bit, a callable rule is the case's own
     check), with its times; the case whose key ``HEADLINE`` names (its
@@ -621,7 +644,8 @@ def phase_kernels(dev, attn_shapes, pairwise_groups):
     device_busy_share(lambda: torch.ones(1, device=dev).sum())
     results = {}
     for name, label, key, run, nbytes, nops, lib, peak, rule in \
-            kernel_cases(dev, attn_shapes, pairwise_groups):
+            kernel_cases(dev, attn_shapes, pairwise_groups,
+                         from_feats_groups):
         got, want = run(True), run(False)
         note = None
         if callable(rule):
@@ -645,9 +669,12 @@ def phase_kernels(dev, attn_shapes, pairwise_groups):
             f"bound {b_ms:.4f} ms ({b_by}) {'ok' if ok else 'MISMATCH'}")
         if note:
             log(f"    {note}")
-        if name.startswith("pairwise"):
+        if name.startswith("pairwise") or "from_feats" in name:
+            # kernels 5 and 6: the floor of their distance pass alone
             log(f"    {key}: floor under the kernel's contract "
-                f"{pairwise_floor_ms(key):.4f} ms")
+                f"{pairwise_floor_ms(key[:3]):.4f}"
+                " ms" + (" (the triangle's terms)" if "from_feats" in name
+                         else ""))
         check(ok, f"{name} {label}: kernel disagrees with its plain version "
               f"(max abs {max_abs:.3e})")
         r = results.setdefault(name, {"max_abs_err": 0.0,
@@ -662,8 +689,10 @@ def phase_kernels(dev, attn_shapes, pairwise_groups):
         _, busy, by_name = device_busy_share(
             lambda: [run(True) for _ in range(20)])
         dev_ms = None if busy is None else busy / 20 * 1e3
-        # both pairwise entry points run pairwise_l2_kernel<...>
-        kname = "pairwise_l2_kernel" if name.startswith("pairwise") else name
+        # both pairwise entry points run pairwise_l2_kernel<...>, kernels
+        # 5 and 6 their from_feats_* passes
+        kname = ("pairwise_l2_kernel" if name.startswith("pairwise") else
+                 "from_feats" if "from_feats" in name else name)
         ran = sorted({n.replace("(anonymous namespace)::", "")
                       .split("(")[0][-60:] for n in by_name if kname in n})
         log(f"    {key}: device busy "
@@ -1124,17 +1153,20 @@ def fleet_setup(wl, clients):
     return specs, cfg, groups
 
 
-def pairwise_groups_below_cutover(wl, clients, cfg, groups, dev):
-    """(C, M, F) of each selection group below the distance-free cutover
-    (kernel 4's calls), F the workload's gradient-feature width."""
+def selection_groups(wl, clients, cfg, groups, dev):
+    """((C, M, F) of each selection group below the distance-free cutover:
+    kernel 4's calls; (C, M, F, k) of each at or above it: kernels 5 and
+    6's), F the workload's gradient-feature width."""
     import torch
 
     params = wl.init(torch.Generator().manual_seed(0), dev)
     batch = {k: torch.as_tensor(v[:2], device=dev)
              for k, v in clients[0].items()}
     f = int(wl.grad_features(params, batch).shape[-1])
-    return [(g.n_clients, g.valid.shape[1], f) for g in groups
-            if g.k > 0 and g.valid.shape[1] < cfg.materialize_below]
+    sel = [(g.n_clients, g.valid.shape[1], f, g.k) for g in groups
+           if g.k > 0]
+    return ([(c, m, f) for c, m, f, _ in sel if m < cfg.materialize_below],
+            [s for s in sel if s[1] >= cfg.materialize_below])
 
 
 def log_groups(groups):
@@ -1227,6 +1259,7 @@ def phase_fleet():
 
     bare_wall, busy, by_name = bare_and_profiled(one_round)
     log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
+    log_kernel_time(by_name, busy, "distance-free (5-6)", "from_feats")
     ewall, parts = stream_time_by_part(one_round)
     log(f"  stream time by part (one more round with CUDA events, wall "
         f"{ewall:.3f} s): " + ", ".join(
@@ -1341,6 +1374,7 @@ def phase_translm(wl, clients, specs, cfg, groups):
     _, busy, by_name = bare_and_profiled(one_round, top=10)
     log_kernel_time(by_name, busy, "flash-attention", "flash_attention")
     log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
+    log_kernel_time(by_name, busy, "distance-free (5-6)", "from_feats")
     step_host_breakdown(wl, cfg, groups, torch.device("cuda"))
     return kept, launches
 
@@ -1511,6 +1545,7 @@ def phase_xlstm(wl, clients, specs, cfg, groups):
     _, busy, by_name = bare_and_profiled(one_round, top=10)
     log_kernel_time(by_name, busy, "RMSNorm", "rmsnorm")
     log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
+    log_kernel_time(by_name, busy, "distance-free (5-6)", "from_feats")
     step_host_breakdown(wl, cfg, groups, torch.device("cuda"),
                         kernel="rmsnorm")
     return kept, launches
@@ -1604,29 +1639,44 @@ T0 = time.time()          # the script's start, shared with its lanes
 PHASE_SECONDS = {}
 
 
-def check_pairwise_sass():
-    """The pairwise kernel's k-loops hold no FFMA (``tools/kernel_sass.py``
-    on ``cuobjdump -sass`` of the built library): its contract is a
-    rounded product and then a rounded add a term, and a multiply-add
-    contracted by some compiler would change the bits."""
+# (source, kernel) of each kernel whose contract is a rounded product
+# and then a rounded add a term: the pairwise kernel (1 and 4) and the
+# passes of kernels 5 and 6
+SUM_LOOP_KERNELS = (("pairwise_l2.cu", "pairwise_l2_kernel"),
+                    ("kmedoids_from_feats.cu", "from_feats_distances"),
+                    ("kmedoids_from_feats.cu", "from_feats_column_walk"),
+                    ("kmedoids_from_feats.cu", "from_feats_sweep_product"))
+
+
+def check_sum_loops_sass():
+    """The k-loops of the pairwise kernel and of kernels 5 and 6's
+    distance pass, and the i-loops of their column walks and Δ-sweep
+    product, hold no FFMA (``tools/kernel_sass.py`` on ``cuobjdump -sass``
+    of the built libraries): a multiply-add contracted by some compiler
+    would change the bits."""
     import re
 
     sys.path.insert(0, str(ROOT / "tools"))
     import kernel_sass
 
-    loops = kernel_sass.fused_in_sum_loops(
-        kernel_sass.disassemble("pairwise_l2.cu"), "pairwise_l2_kernel")
-    check(bool(loops) and all(loops.values()),
-          f"no k-loop found in the pairwise kernel's SASS: {loops}")
-    for name, ffma in sorted(loops.items()):
-        t = re.search(r"pairwise_l2_kernelI((?:Li\d+E)+)Lb([01])E", name)
-        shown = (f"pairwise_l2_kernel<"
-                 + ", ".join(re.findall(r"\d+", t[1]))
-                 + f", {'true' if t[2] == '1' else 'false'}>" if t else name)
-        log(f"    {shown}: {len(ffma)} k-loop(s), FFMA in them "
-            f"{sum(ffma)}")
-    check(not any(sum(v) for v in loops.values()),
-          f"FFMA in the pairwise kernel's k-loop: {loops}")
+    sass = {}
+    for source, kernel in SUM_LOOP_KERNELS:
+        if source not in sass:
+            sass[source] = kernel_sass.disassemble(source)
+        loops = kernel_sass.fused_in_sum_loops(sass[source], kernel)
+        check(bool(loops) and all(loops.values()),
+              f"no sum loop found in {kernel}'s SASS: {loops}")
+        for name, ffma in sorted(loops.items()):
+            t = re.search(kernel + r"I((?:L[ib]\d+E)+)E", name)
+            shown = (f"{kernel}<" + ", ".join(
+                str(int(v)) if kind == "i" else ("true" if v == "1"
+                                                 else "false")
+                for kind, v in re.findall(r"L([ib])(\d+)E", t[1])) + ">"
+                     if t else name)
+            log(f"    {shown}: {len(ffma)} sum loop(s), FFMA in them "
+                f"{sum(ffma)}")
+        check(not any(sum(v) for v in loops.values()),
+              f"FFMA in a sum loop of {kernel}: {loops}")
 
 
 @contextlib.contextmanager
@@ -1828,7 +1878,7 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers",
                                        "spill", "error")):
                 log(f"    {name}: {line.strip()}")
-    check_pairwise_sass()
+    check_sum_loops_sass()
     dev = torch.device("cuda")
 
     with phase("kernels", "2: kernels against their plain versions (rtol "
@@ -1837,12 +1887,11 @@ def main() -> int:
         cwl = cnn_fleet_workload()
         cclients = cwl.make_clients()
         _, ccfg, cgroups = fleet_setup(cwl, cclients)
-        pairwise_groups = (
-            pairwise_groups_below_cutover(cwl, cclients, ccfg, cgroups, dev)
-            + pairwise_groups_below_cutover(twl, tclients, tcfg, tgroups,
-                                            dev))
+        cnn_below, _ = selection_groups(cwl, cclients, ccfg, cgroups, dev)
+        lm_below, lm_above = selection_groups(twl, tclients, tcfg, tgroups,
+                                              dev)
         kernels = phase_kernels(dev, translm_attention_shapes(tcfg, tgroups),
-                                pairwise_groups)
+                                cnn_below + lm_below, lm_above)
     log(f"[{time.time() - T0:.0f} s] == phases 3-11 in three concurrent "
         f"lanes: 3-7 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 ({LANES[2]})")
     by_path, lane_phases = run_lanes()

@@ -14,8 +14,9 @@ as in the JAX package:
   ``repro_torch.kernels.ops`` (CUDA kernels on the card).
 * ``kmedoids_batched_from_feats`` — the same BUILD + SWAP (one shared
   ``_build_swap``) straight from a (C, M, F) feature stack: the fleet
-  engine's selection at M ≥ 256, where the distance-free kernels rebuild
-  each distance tile from the features and D is never stored.
+  engine's selection at M ≥ 256, where the distance-free kernels compute
+  the distances from the features into a workspace of at most
+  ``kernels.ops.FROM_FEATS_WORKSPACE_BYTES`` a call.
 
 Swap Δ (FasterPAM, Schubert & Rousseeuw 2021): with d1/d2 the nearest /
 second-nearest medoid distance of each point and n(i) its nearest slot,
@@ -229,7 +230,7 @@ def kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
 
 
 # ---------------------------------------------------------------------------
-# distance-free solver: same BUILD + SWAP, D never materialized
+# distance-free solver: same BUILD + SWAP from the features
 # ---------------------------------------------------------------------------
 
 def _col_dists(xf: torch.Tensor, sq: torch.Tensor,
@@ -280,9 +281,11 @@ def kmedoids_batched_from_feats(feats: torch.Tensor, valid: torch.Tensor,
     """Distance-free twin of :func:`kmedoids_batched`.
 
     feats: (C, M, F) per-client feature stack; valid: (C, M) masks.  Same
-    BUILD + SWAP and masking contract, but the (C, M, M) distance stack is
-    never materialized on the kernel path: the BUILD add-cost and the
-    Δ-sweep rebuild distance tiles from the features, and the only other
+    BUILD + SWAP and masking contract, but on the kernel path the (C, M, M)
+    distance stack takes at most the workspace cap
+    (``kernels.ops.FROM_FEATS_WORKSPACE_BYTES``, in client chunks or row
+    bands beyond it): the BUILD add-cost and the Δ-sweep compute the
+    distances from the features in each call, and the only other
     distance tensors are (C, M) columns and the (C, M, k) medoid slab.
     Padded lanes must carry zero feature rows; the reductions mask those
     candidates to +BIG so they can never tie-win a medoid election."""

@@ -72,9 +72,9 @@ class FleetConfig:
     # plain PyTorch on the CPU; False on the card is the A/B
     use_kernel: Optional[bool] = None
     # distance-free selection: at M >= materialize_below the k-medoids
-    # reductions consume the (C, M, F) feature stack and the (C, M, M)
-    # distance tensor is never stored; below the cutover (and with
-    # distance_free=False) selection materializes the stack
+    # reductions consume the (C, M, F) feature stack and hold the (C, M, M)
+    # distances only in each call's bounded workspace; below the cutover
+    # (and with distance_free=False) selection materializes the stack
     distance_free: bool = True
     materialize_below: int = 256
     max_sweeps: int = 25          # k-medoids swap sweeps

@@ -6,14 +6,16 @@ under
 ``build/repro_torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``); the libraries are loaded with ``ctypes``.  All sources
 are compiled in parallel, one ``nvcc`` process each.  A library's file
-name carries a hash of its source, so an edited kernel is rebuilt and a
-built one is reused.  A failed build raises with the compiler's output.
+name carries a hash of its source and of the headers of ``csrc/`` it
+includes, so an edited kernel or header is rebuilt and a built one is
+reused.  A failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -41,10 +43,10 @@ KERNELS = {
                             [_P] * 3 + [_I] * 6 + [_P]),
     "build_cost_from_feats": ("kmedoids_from_feats.cu",
                               "fedcore_build_cost_from_feats",
-                              [_P] * 5 + [_I] * 3 + [_P]),
+                              [_P] * 6 + [_I] * 6 + [_P]),
     "delta_sweep_from_feats": ("kmedoids_from_feats.cu",
                                "fedcore_delta_sweep_from_feats",
-                               [_P] * 8 + [_I] * 4 + [_P]),
+                               [_P] * 9 + [_I] * 7 + [_P]),
     "flash_attention": ("flash_attention.cu", "fedcore_flash_attention",
                         [_P] * 4 + [_I] * 9 + [_F] + [_P]),
     "rmsnorm": ("rmsnorm.cu", "fedcore_rmsnorm",
@@ -69,10 +71,29 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _source_files(source: str):
+    """``source`` and every file of ``csrc/`` it includes with
+    ``#include "..."``, at any depth, each once, in the order found."""
+    files, todo = [], [source]
+    while todo:
+        name = todo.pop(0)
+        if name in files:
+            continue
+        files.append(name)
+        todo += [inc.decode() for inc in
+                 _INCLUDE.findall((CSRC / name).read_bytes())]
+    return files
+
+
 def _library_path(source: str) -> Path:
-    digest = hashlib.sha256((CSRC / source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for name in _source_files(source):
+        h.update(name.encode() + b"\0" + (CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(nvcc: Optional[str] = None) -> float:

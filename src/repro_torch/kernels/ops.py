@@ -74,10 +74,11 @@ def _check(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
 _FNS: Dict[str, object] = {}
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Launch kernel ``name`` on ``device``'s current stream: the entry
-    point is resolved once, the raw stream handle taken once, and the
-    device switched only when ``device`` is not the current one."""
+def _call(name: str, device: torch.device, *args) -> None:
+    """Call kernel ``name``'s entry point on ``device``'s current stream:
+    the entry point is resolved once, the raw stream handle taken once,
+    and the device switched only when ``device`` is not the current one.
+    Raises on a launch error."""
     fn = _FNS.get(name)
     if fn is None:
         fn = _FNS[name] = _build.kernel_function(name)
@@ -91,6 +92,12 @@ def _launch(name: str, device: torch.device, *args) -> None:
             rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel ``name`` on ``device``'s current stream (``_call``)
+    and count the launch."""
+    _call(name, device, *args)
     LAUNCHES[name] += 1
 
 
@@ -257,27 +264,95 @@ def kmedoids_delta_sweep(D: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     return A, B
 
 
+# bytes of distances a call of kernels 5 and 6 may hold in its workspace:
+# 4x the largest (C, M, M) stack of the main paths (16.8 MB at C = 1,
+# M = 2048); a cohort whose stack is larger runs in pieces
+# (``from_feats_plan``)
+FROM_FEATS_WORKSPACE_BYTES = 64 << 20
+
+
+def from_feats_plan(c: int, m: int, cap_bytes: int):
+    """The pieces in which kernels 5 and 6 take a cohort of ``c`` clients
+    of ``m`` rows with at most ``cap_bytes`` of float32 distances at a
+    time: ``(c0, c1, r0, r1)``, clients [c0, c1) and rows [r0, r1) of
+    each one's M x M matrix, in order.  Whole clients in chunks as large
+    as the cap allows; where one client's M x M alone is larger, that
+    client in bands of rows, each continuing the sums of the band before.
+    No piece changes a bit of the result."""
+    per_client = 4 * m * m
+    if per_client <= cap_bytes:
+        step = cap_bytes // per_client
+        return [(c0, min(c, c0 + step), 0, m) for c0 in range(0, c, step)]
+    rows = cap_bytes // (4 * m)
+    if rows < 1:
+        raise ValueError(f"a workspace of {cap_bytes} bytes holds no row "
+                         f"of {m} distances")
+    return [(i, i + 1, r0, min(m, r0 + rows)) for i in range(c)
+            for r0 in range(0, m, rows)]
+
+
+def _from_feats_launch(name: str, x: torch.Tensor, cap_bytes: int,
+                       tensors, k=()) -> None:
+    """Run kernel ``name`` (5 or 6) on the card over the pieces of
+    ``from_feats_plan``: one call of its entry point a piece, with the
+    piece's first client's address in each of ``tensors`` (each holding
+    (C, M, ...) contiguous), the workspace, the piece's clients, M, F,
+    ``k`` and its rows.  The workspace comes from the caching allocator
+    and holds the largest piece.  Counts one launch."""
+    c, m, f = x.shape
+    pieces = from_feats_plan(c, m, cap_bytes)
+    ws = torch.empty(max((c1 - c0) * (r1 - r0) * m
+                         for c0, c1, r0, r1 in pieces),
+                     dtype=torch.float32, device=x.device)
+    ptrs = [(t.data_ptr(), t.element_size() * (t.numel() // c))
+            for t in tensors]
+    sms = card_sms(x.device)
+    for c0, c1, r0, r1 in pieces:
+        tile = pairwise_tile(c1 - c0, r1 - r0, m, r0 == 0 and r1 == m, sms)
+        _call(name, x.device, *[p + c0 * s for p, s in ptrs], ws.data_ptr(),
+              c1 - c0, m, f, *k, r0, r1 - r0, tile)
+    LAUNCHES[name] += 1
+
+
+def _from_feats_norms(name: str, x: torch.Tensor, *rows) -> torch.Tensor:
+    """Check kernel 5's or 6's features and (C, M) inputs on the card;
+    returns the squared row norms, as the plain version computes them."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs tensors on a CUDA device, got "
+                         f"{x.device}")
+    c, m, f = x.shape
+    _check(f"{name} x", x, (c, m, f), x.device)
+    for what, t in rows:
+        _check(f"{name} {what}", t, (c, m), x.device)
+    return torch.sum(x * x, dim=-1)
+
+
 def kmedoids_build_cost_from_feats(x: torch.Tensor, d_near: torch.Tensor,
                                    vf: torch.Tensor, *,
                                    use_kernel: Optional[bool] = None
                                    ) -> torch.Tensor:
     """Distance-free BUILD add-cost: x (C, M, F), d_near/vf (C, M) ->
-    (C, M), with the (C, M, M) distance stack never stored on the kernel
-    path.  Padded candidates (vf = 0) return +BIG, so a zero-padded
-    feature row can never win the greedy argmin; padded rows add
-    nothing."""
+    (C, M); on the kernel path the (C, M, M) distance stack takes at
+    most ``FROM_FEATS_WORKSPACE_BYTES`` at a time.  Padded candidates
+    (vf = 0) return +BIG, so a zero-padded feature row can never win the
+    greedy argmin; padded rows add nothing."""
     if not resolve_use_kernel(use_kernel, x.device):
         return ref.kmedoids_build_cost_from_feats_ref(x, d_near, vf)
-    c, m, f = x.shape
-    _check("build_cost_from_feats x", x, (c, m, f), x.device)
-    _check("build_cost_from_feats d_near", d_near, (c, m), x.device)
-    _check("build_cost_from_feats vf", vf, (c, m), x.device)
-    sq = torch.sum(x * x, dim=-1)
-    out = torch.empty((c, m), dtype=torch.float32, device=x.device)
+    return _build_cost_from_feats_launch(x, d_near, vf,
+                                         FROM_FEATS_WORKSPACE_BYTES)
+
+
+def _build_cost_from_feats_launch(x: torch.Tensor, d_near: torch.Tensor,
+                                  vf: torch.Tensor,
+                                  cap_bytes: int) -> torch.Tensor:
+    """Kernel 5 on the card with a workspace of at most ``cap_bytes``;
+    the card tests force small caps through it."""
+    sq = _from_feats_norms("build_cost_from_feats", x, ("d_near", d_near),
+                           ("vf", vf))
+    out = torch.empty(x.shape[:2], dtype=torch.float32, device=x.device)
     if out.numel():
-        _launch("build_cost_from_feats", x.device, x.data_ptr(),
-                sq.data_ptr(), d_near.data_ptr(), vf.data_ptr(),
-                out.data_ptr(), c, m, f)
+        _from_feats_launch("build_cost_from_feats", x, cap_bytes,
+                           (x, sq, d_near, vf, out))
     return out
 
 
@@ -289,23 +364,30 @@ def kmedoids_delta_sweep_from_feats(x: torch.Tensor, d1: torch.Tensor,
     n_onehot (C, M, K).  Returns (A (C, M), B (C, M, K)) as
     ``kmedoids_delta_sweep`` on the feature stack's distances, with
     A = +BIG at padded candidates (vf = 0) so a zero-padded row can never
-    win a swap."""
+    win a swap; on the kernel path the distances take at most
+    ``FROM_FEATS_WORKSPACE_BYTES`` at a time."""
     if not resolve_use_kernel(use_kernel, x.device):
         return ref.kmedoids_delta_sweep_from_feats_ref(x, d1, d2, vf,
                                                        n_onehot)
-    c, m, f = x.shape
+    return _delta_sweep_from_feats_launch(x, d1, d2, vf, n_onehot,
+                                          FROM_FEATS_WORKSPACE_BYTES)
+
+
+def _delta_sweep_from_feats_launch(x: torch.Tensor, d1: torch.Tensor,
+                                   d2: torch.Tensor, vf: torch.Tensor,
+                                   n_onehot: torch.Tensor, cap_bytes: int):
+    """Kernel 6 on the card with a workspace of at most ``cap_bytes``;
+    the card tests force small caps through it."""
+    sq = _from_feats_norms("delta_sweep_from_feats", x, ("d1", d1),
+                           ("d2", d2), ("vf", vf))
+    c, m, _ = x.shape
     k = n_onehot.shape[-1]
-    _check("delta_sweep_from_feats x", x, (c, m, f), x.device)
-    for name, t in (("d1", d1), ("d2", d2), ("vf", vf)):
-        _check(f"delta_sweep_from_feats {name}", t, (c, m), x.device)
     _check("delta_sweep_from_feats n_onehot", n_onehot, (c, m, k), x.device)
-    sq = torch.sum(x * x, dim=-1)
     A = torch.empty((c, m), dtype=torch.float32, device=x.device)
     B = torch.empty((c, m, k), dtype=torch.float32, device=x.device)
-    if B.numel():
-        _launch("delta_sweep_from_feats", x.device, x.data_ptr(),
-                sq.data_ptr(), d1.data_ptr(), d2.data_ptr(), vf.data_ptr(),
-                n_onehot.data_ptr(), A.data_ptr(), B.data_ptr(), c, m, f, k)
+    if A.numel():
+        _from_feats_launch("delta_sweep_from_feats", x, cap_bytes,
+                           (x, sq, d1, d2, vf, n_onehot, A, B), (k,))
     return A, B
 
 

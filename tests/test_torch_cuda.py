@@ -196,8 +196,14 @@ def test_pairwise_batched_client_is_its_own_matrix(cuda):
         _same(stack[i], single)
 
 
+# ragged M around the 32-row stages and tiles; F = 129, 60 and 33 take
+# 4-byte copies (rows off 16-byte boundaries); (22, 256, 1568) is the CNN
+# fleet's main distance-free group, (1, 2048, 32) the char-LM fleets'
+# largest
 @pytest.mark.parametrize("c,m,f", [(2, 40, 129), (3, 300, 64),
-                                   (1, 256, 1568)])
+                                   (1, 256, 1568), (22, 256, 1568),
+                                   (1, 2048, 32), (2, 1, 16), (3, 33, 60),
+                                   (2, 65, 33), (1, 514, 20)])
 def test_build_cost_from_feats_kernel_matches_plain(cuda, c, m, f):
     g = torch.Generator(device="cpu").manual_seed(c + m + f)
     x, vf = _masked_feats(g, c, m, f, cuda)
@@ -208,15 +214,25 @@ def test_build_cost_from_feats_kernel_matches_plain(cuda, c, m, f):
     assert bool((got[vf == 0] == 1e30).all())
 
 
+def _sweep_inputs(g, c, m, f, k, dev):
+    x, vf = _masked_feats(g, c, m, f, dev)
+    d1 = torch.rand(c, m, generator=g)
+    d2 = (d1 + torch.rand(c, m, generator=g)).to(dev)
+    idx = torch.randint(0, k, (c, m), generator=g)
+    onehot = torch.nn.functional.one_hot(idx, k).float().to(dev)
+    return x, d1.to(dev), d2, vf, onehot
+
+
+# K = 1, K > 64 (130) and ragged K (7, 33, 65: rows of H off 16-byte
+# boundaries); ragged M and F as above
 @pytest.mark.parametrize("c,m,f,k", [(2, 40, 129, 7), (1, 300, 64, 1),
-                                     (2, 256, 160, 130)])
+                                     (2, 256, 160, 130), (22, 256, 64, 64),
+                                     (1, 2048, 32, 1), (3, 33, 60, 33),
+                                     (2, 65, 33, 65), (1, 97, 16, 128),
+                                     (2, 1, 8, 1)])
 def test_delta_sweep_from_feats_kernel_matches_plain(cuda, c, m, f, k):
     g = torch.Generator(device="cpu").manual_seed(c * k + m + f)
-    x, vf = _masked_feats(g, c, m, f, cuda)
-    d1 = torch.rand(c, m, generator=g).to(cuda)
-    d2 = (d1.cpu() + torch.rand(c, m, generator=g)).to(cuda)
-    idx = torch.randint(0, k, (c, m), generator=g)
-    onehot = torch.nn.functional.one_hot(idx, k).float().to(cuda)
+    x, d1, d2, vf, onehot = _sweep_inputs(g, c, m, f, k, cuda)
     A, B = ops.kmedoids_delta_sweep_from_feats(x, d1, d2, vf, onehot)
     torch.cuda.synchronize()
     A_ref, B_ref = ref.kmedoids_delta_sweep_from_feats_ref(x, d1, d2, vf,
@@ -224,6 +240,101 @@ def test_delta_sweep_from_feats_kernel_matches_plain(cuda, c, m, f, k):
     _same(A, A_ref)
     _same(B, B_ref)
     assert bool((A[vf == 0] == 1e30).all())
+
+
+def test_from_feats_kernels_at_misaligned_storage(cuda):
+    """Storage 4 bytes off a 16-byte boundary (features, H): the 4-byte
+    copy paths give the same bits."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x, d1, d2, vf, onehot = _sweep_inputs(g, 2, 200, 64, 12, cuda)
+    want = ref.kmedoids_build_cost_from_feats_ref(x, d1, vf)
+    _same(ops.kmedoids_build_cost_from_feats(_misaligned(x), d1, vf), want)
+    A, B = ops.kmedoids_delta_sweep_from_feats(_misaligned(x), d1, d2, vf,
+                                               _misaligned(onehot))
+    A_ref, B_ref = ref.kmedoids_delta_sweep_from_feats_ref(x, d1, d2, vf,
+                                                           onehot)
+    torch.cuda.synchronize()
+    _same(A, A_ref)
+    _same(B, B_ref)
+
+
+@pytest.mark.parametrize("c,m,f,k", [(5, 100, 64, 7), (2, 130, 33, 65)])
+def test_from_feats_small_cap_runs_chunks_and_bands(cuda, c, m, f, k):
+    """A workspace cap forced small: chunks of half the clients, then
+    bands of 37 rows and of one row (each band continuing the sums of
+    the last); every cap gives the bits of the plain version and counts
+    one launch a call."""
+    g = torch.Generator(device="cpu").manual_seed(c + m + f + k)
+    x, d1, d2, vf, onehot = _sweep_inputs(g, c, m, f, k, cuda)
+    want = ref.kmedoids_build_cost_from_feats_ref(x, d1, vf)
+    A_ref, B_ref = ref.kmedoids_delta_sweep_from_feats_ref(x, d1, d2, vf,
+                                                           onehot)
+    for cap in (4 * m * m * (c // 2), 4 * m * 37, 4 * m):
+        plan = ops.from_feats_plan(c, m, cap)
+        assert len(plan) > 1
+        before = dict(ops.LAUNCHES)
+        cost = ops._build_cost_from_feats_launch(x, d1, vf, cap)
+        A, B = ops._delta_sweep_from_feats_launch(x, d1, d2, vf, onehot,
+                                                  cap)
+        torch.cuda.synchronize()
+        _same(cost, want)
+        _same(A, A_ref)
+        _same(B, B_ref)
+        for name in ("build_cost_from_feats", "delta_sweep_from_feats"):
+            assert ops.LAUNCHES[name] == before[name] + 1
+
+
+def test_from_feats_client_is_its_own_call(cuda):
+    """The loop-vs-batched engine invariant: client i of the CNN fleet's
+    (22, 256, 1568) group gets the bits of its own C = 1 call, in both
+    kernels."""
+    g = torch.Generator(device="cpu").manual_seed(22)
+    x, d1, d2, vf, onehot = _sweep_inputs(g, 22, 256, 1568, 64, cuda)
+    cost = ops.kmedoids_build_cost_from_feats(x, d1, vf)
+    A, B = ops.kmedoids_delta_sweep_from_feats(x, d1, d2, vf, onehot)
+    for i in range(x.shape[0]):
+        one = slice(i, i + 1)
+        args = [t[one].contiguous() for t in (x, d1, d2, vf, onehot)]
+        c1 = ops.kmedoids_build_cost_from_feats(args[0], args[1], args[3])
+        A1, B1 = ops.kmedoids_delta_sweep_from_feats(*args)
+        torch.cuda.synchronize()
+        _same(cost[one], c1)
+        _same(A[one], A1)
+        _same(B[one], B1)
+
+
+@pytest.mark.parametrize("cap", [None, 4 * 2048 * 100])
+def test_from_feats_peak_memory_within_the_cap(cuda, cap):
+    """A call's peak allocation above its inputs (the bytes it asks the
+    caching allocator for, ``torch.cuda.memory_stats``' requested bytes,
+    so that no block rounding of the allocator counts): the outputs, the
+    squared norms and the larger of the distance workspace (at most the
+    cap) and the norms' one temporary x*x, which is freed before the
+    workspace is taken; never the (C, M, M) stack beyond the cap."""
+    c, m, f, k = 1, 2048, 256, 130
+    cap = ops.FROM_FEATS_WORKSPACE_BYTES if cap is None else cap
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x, d1, d2, vf, onehot = _sweep_inputs(g, c, m, f, k, cuda)
+    ws = min(cap, 4 * c * m * m)
+    norms, temp = 4 * c * m, 4 * c * m * f
+    for outputs, call in (
+            (4 * c * m,
+             lambda: ops._build_cost_from_feats_launch(x, d1, vf, cap)),
+            (4 * c * m + 4 * c * m * k,
+             lambda: ops._delta_sweep_from_feats_launch(x, d1, d2, vf,
+                                                        onehot, cap))):
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(cuda)
+        stats = torch.cuda.memory_stats(cuda)
+        base = stats["requested_bytes.all.current"]
+        out = call()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.memory_stats(cuda)["requested_bytes.all.peak"]
+                - base)
+        assert peak <= norms + outputs + max(ws, temp), \
+            (peak, norms, outputs, ws, temp)
+        del out
 
 
 def test_short_fleet_run_goes_through_the_fleet_kernels(cuda):
