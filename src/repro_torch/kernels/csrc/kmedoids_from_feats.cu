@@ -45,11 +45,13 @@
 // 2. Reductions over the workspace, one output a thread, each summing
 //    its rows in order.
 //    * Column walks (from_feats_column_walk: kernel 5's cost, kernel 6's
-//      A).  One warp a block, one column a lane, so a cohort of C
-//      clients spreads over C * ceil(M/32) blocks (64 at (1, 2048)); the
-//      warp streams its 32-column slice through a 10-stage cp.async
-//      ring of 32-row chunks, so many rows are in flight while the lanes
-//      add.
+//      A).  One warp a block and an 8-column slice, so a cohort of C
+//      clients spreads over C * ceil(M/8) blocks (256 at (1, 2048)); the
+//      warp streams its slice through a 10-stage cp.async ring of 32-row
+//      chunks.  An output's chain of M adds runs at a warp's pace a row
+//      whatever its width, so narrow slices put more chains on each SM:
+//      at (1, 2048) 32, 16 and 8 columns a block took 0.0246, 0.0204 and
+//      0.0180 ms (H100, tools/from_feats_times.py).
 //    * The Delta-sweep's B (from_feats_sweep_product): the dense
 //      product contrib^T @ H over i in order, a block a 32 x 32 tile of
 //      (j, l) (320 blocks at (1, 2048, 130)), 256 threads with 2 x 2
@@ -183,7 +185,7 @@ int distances(int tile, const float* x, const float* sq, float* ws, int c,
 // pass 2: column walks (kernel 5's cost, kernel 6's A)
 // ---------------------------------------------------------------------------
 
-constexpr int kWalkCols = 32;    // a warp's slice: one column a lane
+constexpr int kWalkCols = 8;     // a block's slice of columns
 constexpr int kWalkRows = 32;    // rows a stage
 constexpr int kWalkStages = 10;  // stages in flight
 
@@ -193,9 +195,10 @@ constexpr int kWalkStages = 10;  // stages in flight
 // ws (c, rows, m) the band's distances, p and v (c, m); the first band
 // starts at 0, a later one at the sums in out; the last band masks
 // padded candidates to 1e30.  One warp a block, blockIdx.x = client *
-// ctiles + column tile.
+// ctiles + column tile; lane l adds column l % kWalkCols (the lanes past
+// kWalkCols repeat those sums and store nothing), and all 32 lanes copy.
 template <bool BUILD, bool VEC>
-__global__ void __launch_bounds__(kWalkCols)
+__global__ void __launch_bounds__(32)
 from_feats_column_walk(const float* __restrict__ ws,
                        const float* __restrict__ p,
                        const float* __restrict__ v, float* __restrict__ out,
@@ -205,9 +208,10 @@ from_feats_column_walk(const float* __restrict__ ws,
   __shared__ __align__(16) float s_v[kWalkStages][kWalkRows];
 
   const int lane = threadIdx.x;
+  const int col = lane % kWalkCols;
   const size_t client = blockIdx.x / ctiles;
   const int j0 = (blockIdx.x % ctiles) * kWalkCols;
-  const int j = j0 + lane;
+  const int j = j0 + col;
   ws += client * rows * m;
   const float* pc = p + client * m + r0;
   const float* vc = v + client * m + r0;
@@ -217,25 +221,17 @@ from_feats_column_walk(const float* __restrict__ ws,
   // band and the matrix
   auto stage = [&](int s, int chunk) {
     const int i0 = chunk * kWalkRows;
-    if constexpr (VEC) {
-      // 16 bytes a copy: row lane / 8 + 4q, columns (lane % 8) * 4 on
-      const int cc = (lane % 8) * 4;
+    constexpr int kW = VEC ? 4 : 1;               // floats a copy moves
+    constexpr int kLanes = kWalkCols / kW;        // copies a row takes
+    constexpr int kPass = 32 / kLanes;            // rows a pass
+    const int cc = (lane % kLanes) * kW;
 #pragma unroll
-      for (int q = 0; q < kWalkRows / 4; ++q) {
-        const int r = lane / 8 + 4 * q, i = i0 + r;
-        const bool ok = i < rows && j0 + cc < m;
-        copy_async<true>(&s_w[s][r][cc],
-                         ok ? ws + static_cast<size_t>(i) * m + j0 + cc : ws,
-                         ok);
-      }
-    } else {
-#pragma unroll 8
-      for (int r = 0; r < kWalkRows; ++r) {
-        const int i = i0 + r;
-        const bool ok = i < rows && j < m;
-        copy_async<false>(&s_w[s][r][lane],
-                          ok ? ws + static_cast<size_t>(i) * m + j : ws, ok);
-      }
+    for (int q = 0; q < kWalkRows / kPass; ++q) {
+      const int r = lane / kLanes + kPass * q, i = i0 + r;
+      const bool ok = i < rows && j0 + cc < m;
+      copy_async<VEC>(&s_w[s][r][cc],
+                      ok ? ws + static_cast<size_t>(i) * m + j0 + cc : ws,
+                      ok);
     }
     const bool ok = i0 + lane < rows;
     copy_async<false>(&s_p[s][lane], ok ? pc + i0 + lane : pc, ok);
@@ -268,7 +264,7 @@ from_feats_column_walk(const float* __restrict__ ws,
       const float vr[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float w = s_w[s][r + q][lane];
+        const float w = s_w[s][r + q][col];
         const float term =
             BUILD ? __fmul_rn(fminf(pr[q], w), vr[q])
                   : __fmul_rn(__fsub_rn(fminf(w, pr[q]), pr[q]), vr[q]);
@@ -277,8 +273,8 @@ from_feats_column_walk(const float* __restrict__ ws,
     }
   }
   wait_async<0>();
-  if (j < m) out[j] = (r0 + rows < m || v[client * m + j] > 0.f) ? acc
-                                                                 : kBig;
+  if (lane < kWalkCols && j < m)
+    out[j] = (r0 + rows < m || v[client * m + j] > 0.f) ? acc : kBig;
 }
 
 template <bool BUILD>
@@ -288,10 +284,10 @@ int column_walk(const float* ws, const float* p, const float* v, float* out,
   if (ctiles * c > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const unsigned grid = static_cast<unsigned>(ctiles * c);
   if (rows_aligned(ws, ws, m))
-    from_feats_column_walk<BUILD, true><<<grid, kWalkCols, 0, stream>>>(
+    from_feats_column_walk<BUILD, true><<<grid, 32, 0, stream>>>(
         ws, p, v, out, m, r0, rows, static_cast<int>(ctiles));
   else
-    from_feats_column_walk<BUILD, false><<<grid, kWalkCols, 0, stream>>>(
+    from_feats_column_walk<BUILD, false><<<grid, 32, 0, stream>>>(
         ws, p, v, out, m, r0, rows, static_cast<int>(ctiles));
   return static_cast<int>(cudaGetLastError());
 }
