@@ -11,8 +11,9 @@ phases run in order and any failure exits non-zero:
    cuDNN, and the build of
    the eight CUDA kernels from ``src/repro_torch/kernels/csrc`` (nvcc,
    sm_90a, one process per source, compiled in parallel); the pairwise
-   kernel's k-loops, and the k- and i-loops of the distance-free
-   kernels' passes, must hold no FFMA in their SASS (``cuobjdump``; their
+   kernel's k-loops, the k- and i-loops of the distance-free kernels'
+   passes and the i-loops of kernels 2 and 3 (their column walks, kernel
+   3's B segments) must hold no FFMA in their SASS (``cuobjdump``; their
    contract is a rounded product and then a rounded add a term);
 2. each kernel against its plain PyTorch version on the card at the main
    paths' shapes: error, kernel / plain / library time, least time (the
@@ -42,13 +43,19 @@ phases run in order and any failure exits non-zero:
    and 6) at phase 2's old shapes and at every selection group of the
    char-LM fleets at or above the cutover (F = 32), each equal to its
    plain version bit for bit, with their busy time and the floor of
-   their distance pass;
+   their distance pass; the D-input BUILD and Δ-sweep (kernels 2 and 3)
+   bit for bit at their old shapes, every fleet group below the cutover,
+   D and H off a 16-byte boundary, an H of several nonzeros a row of
+   mixed sign, a dense H, and one slot holding 90 % of the rows, each
+   with its busy time; and, once the lanes have ended, at the sync
+   path's own (M, K), which phase 3 records;
 3. the main path at full width: ``run_federated`` with ``FedCore`` on
    ``SmallCNN()`` (28x28, channels 16/32, F = 1568) over 200 pseudo-MNIST
    clients (Table 1 sizes: mean 69, std 106), 3 rounds of 10 clients,
    E = 5; the launch counts are set to 0 just before and read just after,
    and every kernel must have launched and every coreset been built on
-   the card;
+   the card; the solves' (M, K) are logged as a histogram with their
+   kernel-2 and kernel-3 launches;
 4. the same run with ``use_kernel=False``: equal coresets (or tied ones,
    equal within 1e-5 in the float64 k-medoids objective) and final
    parameters within 1e-4;
@@ -65,9 +72,9 @@ phases run in order and any failure exits non-zero:
    with CUDA events around the gradient-feature passes, the selection
    solves and the distance-free solver's column and medoid-slab rebuilds
    (their stream time), and under ``torch.profiler`` (the device's busy
-   time; the idle share is taken against the bare wall; the pairwise
-   kernel's device time, which phases 8 and 10 print too and which must
-   not be 0);
+   time; the idle share is taken against the bare wall; the device time
+   of the pairwise kernel and of kernels 2, 3, 5 and 6, which phases 8
+   and 10 print too and which must not be 0);
 7. the fleet A/Bs: the same 3 rounds with ``use_kernel=False`` pick the
    same medoids per (round, client) and end on bit-identical parameters;
    one round of ``engine="loop"`` picks the batched round's medoids and
@@ -200,7 +207,7 @@ HEADLINE = {"pairwise_l2": (2048, 1568), "build_cost": (1, 2048),
 # too
 REDESIGNED = ("flash_attention", "rmsnorm", "pairwise_l2",
               "pairwise_l2_batched", "build_cost_from_feats",
-              "delta_sweep_from_feats")
+              "delta_sweep_from_feats", "build_cost", "delta_sweep")
 # the main path each kernel belongs to: its launches in the kernels line
 # are that path's (every path's counts are printed beside them)
 PATH_OF = {"pairwise_l2": "sync", "build_cost": "sync",
@@ -311,14 +318,16 @@ def compare(got, want):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def kernel_cases(dev, attn_shapes, pairwise_groups, from_feats_groups):
+def kernel_cases(dev, attn_shapes, pairwise_groups, from_feats_groups,
+                 kmedoids_groups=()):
     """(kernel, label, shape key, run(use_kernel) -> tensors, bytes, ops,
     library call or None, peak FLOP/s of the operations' type, rule) at
     the main paths' shapes; ``attn_shapes`` names the ``translm`` fleet's
     own attention shapes, ``pairwise_groups`` the fleets' (C, M, D)
     selection groups below the distance-free cutover,
     ``from_feats_groups`` the char-LM fleets' (C, M, F, k) groups at or
-    above it."""
+    above it, ``kmedoids_groups`` the fleets' (C, M, k) groups below it
+    (kernels 2 and 3)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -351,24 +360,13 @@ def kernel_cases(dev, attn_shapes, pairwise_groups, from_feats_groups):
             D = torch.rand(c, m, m, generator=g, device=dev)
             dn = torch.rand(c, m, generator=g, device=dev)
             vf = (torch.rand(c, m, generator=g, device=dev) < 0.9).float()
-
-            def run(uk, D=D, dn=dn, vf=vf):
-                return (ops.kmedoids_build_cost(D, dn, vf, use_kernel=uk),)
-
-            cases.append(("build_cost", f"C={c} M={m}", (c, m), run,
-                          4.0 * (c * m * m + 3 * c * m), 3.0 * c * m * m,
-                          None, PEAK_FP32_FLOPS, None))
+            cases.append(build_cost_case(f"C={c} M={m}", (c, m), D, dn,
+                                         vf))
     # the fleet's selection group below the cutover: C=25, M=128, k=64
     D = torch.rand(25, 128, 128, generator=g, device=dev)
     dn = torch.rand(25, 128, generator=g, device=dev)
     vf = (torch.rand(25, 128, generator=g, device=dev) < 0.9).float()
-
-    def run(uk, D=D, dn=dn, vf=vf):
-        return (ops.kmedoids_build_cost(D, dn, vf, use_kernel=uk),)
-
-    cases.append(("build_cost", "C=25 M=128 (fleet)", (25, 128), run,
-                  4.0 * (25 * 128 * 128 + 3 * 25 * 128),
-                  3.0 * 25 * 128 * 128, None, PEAK_FP32_FLOPS, None))
+    cases.append(build_cost_case("C=25 M=128 (fleet)", (25, 128), D, dn, vf))
     for c, m, ks in ((1, 37, (1, 7)), (1, 1000, (1, 7, 130, 700)),
                      (1, 2048, (1, 7, 130, 700)), (25, 128, (64,))):
         D = torch.rand(c, m, m, generator=g, device=dev)
@@ -378,21 +376,11 @@ def kernel_cases(dev, attn_shapes, pairwise_groups, from_feats_groups):
         for k in ks:
             idx = torch.randint(0, k, (c, m), generator=g, device=dev)
             oh = torch.nn.functional.one_hot(idx, k).float()
-
-            def run(uk, D=D, d1=d1, d2=d2, vf=vf, oh=oh):
-                return ops.kmedoids_delta_sweep(D, d1, d2, vf, oh,
-                                                use_kernel=uk)
-
-            # the data's work: 8 elementwise operations and one A add per
-            # (i, j), and one multiply-add per nonzero of the one-hot
-            nnz = float((oh != 0).sum())
             label = (f"M={m} K={k}" if c == 1
                      else f"C={c} M={m} K={k} (fleet)")
-            cases.append(("delta_sweep", label,
-                          (m, k) if c == 1 else (c, m, k), run,
-                          4.0 * c * (m * m + 4 * m + 2 * m * k),
-                          9.0 * c * m * m + 2.0 * nnz * m, None,
-                          PEAK_FP32_FLOPS, None))
+            cases.append(delta_sweep_case(
+                label, (m, k) if c == 1 else (c, m, k), D, d1, d2, vf, oh))
+    cases += kmedoids_cases(dev, kmedoids_groups)
 
     # the fleet's kernels: per-client pairwise stacks below the cutover,
     # the distance-free BUILD and Δ-sweep at and above it, at SmallCNN's
@@ -478,6 +466,136 @@ def kernel_cases(dev, attn_shapes, pairwise_groups, from_feats_groups):
                           PEAK_FP32_FLOPS, "exact"))
     cases += attention_cases(dev, g, attn_shapes)
     cases += rmsnorm_cases(dev, g)
+    return cases
+
+
+def misaligned(x):
+    """A contiguous copy of ``x`` whose storage starts 4 bytes past a
+    16-byte boundary (a kernel's 4-byte copy path)."""
+    import torch
+
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def build_cost_case(label, key, D, dn, vf):
+    """A phase-2 case of kernel 2 on D (C, M, M), d_near and vf (C, M):
+    D once, 3 operations an element."""
+    from repro_torch.kernels import ops
+
+    c, m = D.shape[:2]
+
+    def run(uk, D=D, dn=dn, vf=vf):
+        return (ops.kmedoids_build_cost(D, dn, vf, use_kernel=uk),)
+
+    return ("build_cost", label, key, run, 4.0 * (c * m * m + 3 * c * m),
+            3.0 * c * m * m, None, PEAK_FP32_FLOPS, "exact")
+
+
+def delta_sweep_case(label, key, D, d1, d2, vf, H):
+    """A phase-2 case of kernel 3: D, H and B once; the data's work, 8
+    elementwise operations and one A add per (i, j), and a multiply and
+    an add per nonzero of H and j."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    c, m, k = H.shape
+
+    def run(uk, D=D, d1=d1, d2=d2, vf=vf, H=H):
+        return ops.kmedoids_delta_sweep(D, d1, d2, vf, H, use_kernel=uk)
+
+    nnz = float((H != 0).sum())
+    return ("delta_sweep", label, key, run,
+            4.0 * c * (m * m + 4 * m + 2 * m * k),
+            9.0 * c * m * m + 2.0 * nnz * m, None, PEAK_FP32_FLOPS, "exact")
+
+
+def sweep_inputs(g, c, m, dev):
+    """Random D (C, M, M) and d1 <= d2, vf (C, M) for kernels 2 and 3."""
+    import torch
+
+    D = torch.rand(c, m, m, generator=g, device=dev)
+    d1 = torch.rand(c, m, generator=g, device=dev)
+    d2 = d1 + torch.rand(c, m, generator=g, device=dev)
+    vf = (torch.rand(c, m, generator=g, device=dev) < 0.9).float()
+    return D, d1, d2, vf
+
+
+def onehot(g, c, m, k, dev):
+    import torch
+
+    idx = torch.randint(0, k, (c, m), generator=g, device=dev)
+    return torch.nn.functional.one_hot(idx, k).float()
+
+
+def kmedoids_cases(dev, groups):
+    """Kernels 2 and 3 beyond their old cases: D off a 16-byte boundary,
+    an H that is not one-hot (two to four nonzeros a row of mixed sign
+    and not 1, a zero row; a dense H), one slot holding 90 % of the rows,
+    and each fleet group below the cutover, (C, M, k) of ``groups``."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    cases = []
+    D, d1, _, vf = sweep_inputs(g, 1, 2048, dev)
+    cases.append(build_cost_case("C=1 M=2048 misaligned",
+                                 (1, 2048, "misaligned"), misaligned(D),
+                                 d1, vf))
+    D, d1, d2, vf = sweep_inputs(g, 1, 2048, dev)
+    cases.append(delta_sweep_case(
+        "M=2048 K=130 misaligned", (2048, 130, "misaligned"), misaligned(D),
+        d1, d2, vf, misaligned(onehot(g, 1, 2048, 130, dev))))
+    idx = torch.where(torch.rand(1, 2048, generator=g, device=dev) < 0.9,
+                      0, 1 + torch.randint(0, 6, (1, 2048), generator=g,
+                                           device=dev))
+    cases.append(delta_sweep_case(
+        "M=2048 K=7 uneven", (2048, 7, "uneven"), D, d1, d2, vf,
+        torch.nn.functional.one_hot(idx, 7).float()))
+    D, d1, d2, vf = sweep_inputs(g, 1, 256, dev)
+    H = torch.randn(1, 256, 16, generator=g, device=dev)
+    H = H * (torch.rand(1, 256, 16, generator=g, device=dev) < 0.2)
+    H[0, 7] = 0.0
+    cases.append(delta_sweep_case("M=256 K=16 multi", (256, 16, "multi"),
+                                  D, d1, d2, vf, H))
+    D, d1, d2, vf = sweep_inputs(g, 1, 64, dev)
+    cases.append(delta_sweep_case(
+        "M=64 K=64 dense", (64, 64, "dense"), D, d1, d2, vf,
+        torch.randn(1, 64, 64, generator=g, device=dev)))
+    shown = {(25, 128), (25, 128, 64)}
+    for c, m, k in sorted(set(groups)):
+        D, d1, d2, vf = sweep_inputs(g, c, m, dev)
+        if (c, m) not in shown:
+            shown.add((c, m))
+            cases.append(build_cost_case(f"C={c} M={m} (fleet)", (c, m), D,
+                                         d1, vf))
+        if (c, m, k) not in shown:
+            shown.add((c, m, k))
+            cases.append(delta_sweep_case(
+                f"C={c} M={m} K={k} (fleet)", (c, m, k), D, d1, d2, vf,
+                onehot(g, c, m, k, dev)))
+    return cases
+
+
+def sync_cases(dev, shapes):
+    """Kernels 2 and 3 at the sync path's own shapes: ``shapes`` holds
+    the (M, k) of phase 3's solves; kernel 2 at each M, kernel 3 at each
+    (M, k) with a one-hot H."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = []
+    for m in sorted({m for m, _ in shapes}):
+        D, d1, _, vf = sweep_inputs(g, 1, m, dev)
+        cases.append(build_cost_case(f"C=1 M={m} (sync)", (1, m, "sync"),
+                                     D, d1, vf))
+    for m, k in sorted(set(shapes)):
+        D, d1, d2, vf = sweep_inputs(g, 1, m, dev)
+        cases.append(delta_sweep_case(f"M={m} K={k} (sync)",
+                                      (m, k, "sync"), D, d1, d2, vf,
+                                      onehot(g, 1, m, k, dev)))
     return cases
 
 
@@ -631,21 +749,20 @@ def rmsnorm_cases(dev, g):
     return cases
 
 
-def phase_kernels(dev, attn_shapes, pairwise_groups, from_feats_groups):
+def phase_kernels(dev, cases, results=None):
     """Each case's kernel against its plain version (``compare``; an
     "exact" case must agree to the bit, a callable rule is the case's own
     check), with its times; the case whose key ``HEADLINE`` names (its
     kernel's headline) and every keyed case of a ``REDESIGNED`` kernel
     are also timed by the card's busy time, and for a ``REDESIGNED``
-    kernel so is its library call."""
+    kernel so is its library call.  Adds to ``results`` (kernel ->
+    errors, headline numbers, timed cases) and returns it."""
     import torch
 
     # the first profiler session of a process may see no device activity
     device_busy_share(lambda: torch.ones(1, device=dev).sum())
-    results = {}
-    for name, label, key, run, nbytes, nops, lib, peak, rule in \
-            kernel_cases(dev, attn_shapes, pairwise_groups,
-                         from_feats_groups):
+    results = {} if results is None else results
+    for name, label, key, run, nbytes, nops, lib, peak, rule in cases:
         got, want = run(True), run(False)
         note = None
         if callable(rule):
@@ -819,6 +936,45 @@ def check_params(out):
         check(bool(torch.isfinite(v).all()), f"param {k} is not finite")
 
 
+@contextlib.contextmanager
+def solver_shapes():
+    """While open, record each D-input k-medoids solve (the sync path's,
+    through ``repro_torch.core.kmedoids._kmedoids_batched``) by (M, k),
+    with the kernel-2 and kernel-3 launches it made: yields {(M, k):
+    [solves, kernel-2 launches, kernel-3 launches]}."""
+    from repro_torch.core import kmedoids
+    from repro_torch.kernels import ops
+
+    inner = kmedoids._kmedoids_batched
+    hist = {}
+
+    def recorded(D, valid, k, *args):
+        n2, n3 = ops.LAUNCHES["build_cost"], ops.LAUNCHES["delta_sweep"]
+        out = inner(D, valid, k, *args)
+        h = hist.setdefault((int(D.shape[1]), int(k)), [0, 0, 0])
+        h[0] += 1
+        h[1] += ops.LAUNCHES["build_cost"] - n2
+        h[2] += ops.LAUNCHES["delta_sweep"] - n3
+        return out
+
+    kmedoids._kmedoids_batched = recorded
+    try:
+        yield hist
+    finally:
+        kmedoids._kmedoids_batched = inner
+
+
+def log_solver_shapes(hist):
+    """The histogram of kernels 2 and 3's launches by (M, k), and the
+    median M of their launches."""
+    ms = sorted(m for (m, _), (_, n2, n3) in hist.items()
+                for _ in range(n2 + n3))
+    log("  kernels 2 and 3 by (M, K), solves / kernel-2 / kernel-3 "
+        "launches: " + ", ".join(f"({m}, {k}) {a}/{b}/{c}" for (m, k),
+                                  (a, b, c) in sorted(hist.items()))
+        + (f"; median M of their launches {ms[len(ms) // 2]}" if ms else ""))
+
+
 def phase_main_path():
     from repro_torch.data import mnist_like_dataset
     from repro_torch.fed import FLConfig
@@ -833,7 +989,8 @@ def phase_main_path():
     model = SmallCNN()
     cfg = FLConfig(rounds=3, clients_per_round=10, epochs=5, batch_size=8,
                    lr=0.03, straggler_pct=30.0)
-    out, strat, records, launches, wall = run_fl(model, clients, cfg)
+    with solver_shapes() as hist:
+        out, strat, records, launches, wall = run_fl(model, clients, cfg)
     devices, sel_s, round_s = report_rounds(out, records)
     log(f"  wall {wall:.2f} s; selection {sel_s:.3f} s of {round_s:.3f} s "
         f"in rounds ({100 * sel_s / max(round_s, 1e-12):.1f}%); "
@@ -841,13 +998,14 @@ def phase_main_path():
         f"{[b for _, b, _ in strat.selected]} of m "
         f"{[len(f) for f, _, _ in strat.selected]}")
     log(f"  launches on the main path: {launches}")
+    log_solver_shapes(hist)
     check(len(strat.selected) > 0, "no coreset was built on the main path")
     check(all(launches[k] > 0 for k in SYNC_KERNELS),
           f"a kernel never launched on the main path: {launches}")
     check(all(str(d).startswith("cuda") for d in devices),
           f"a coreset was built off the card: {devices}")
     check_params(out)
-    return clients, cfg, out, strat, launches
+    return clients, cfg, out, strat, launches, sorted(hist)
 
 
 def phase_plain_ab(clients, cfg, kout, kstrat):
@@ -1154,9 +1312,10 @@ def fleet_setup(wl, clients):
 
 
 def selection_groups(wl, clients, cfg, groups, dev):
-    """((C, M, F) of each selection group below the distance-free cutover:
-    kernel 4's calls; (C, M, F, k) of each at or above it: kernels 5 and
-    6's), F the workload's gradient-feature width."""
+    """((C, M, F, k) of each selection group below the distance-free
+    cutover: kernel 4's calls, then kernels 2 and 3's; (C, M, F, k) of
+    each at or above it: kernels 5 and 6's), F the workload's
+    gradient-feature width."""
     import torch
 
     params = wl.init(torch.Generator().manual_seed(0), dev)
@@ -1165,8 +1324,26 @@ def selection_groups(wl, clients, cfg, groups, dev):
     f = int(wl.grad_features(params, batch).shape[-1])
     sel = [(g.n_clients, g.valid.shape[1], f, g.k) for g in groups
            if g.k > 0]
-    return ([(c, m, f) for c, m, f, _ in sel if m < cfg.materialize_below],
+    return ([s for s in sel if s[1] < cfg.materialize_below],
             [s for s in sel if s[1] >= cfg.materialize_below])
+
+
+def phase2_groups(dev):
+    """Phase 2's shapes from the fleets' round-0 groups: (the ``translm``
+    fleet's attention shapes, the (C, M, F) groups below the cutover of
+    the CNN and char-LM fleets, the char-LM fleets' (C, M, F, k) groups at
+    or above it, the (C, M, k) groups below it), ``kernel_cases``'s
+    arguments."""
+    twl, tclients, _, tcfg, tgroups = translm_fleet()
+    cwl = cnn_fleet_workload()
+    cclients = cwl.make_clients()
+    _, ccfg, cgroups = fleet_setup(cwl, cclients)
+    cnn_below, _ = selection_groups(cwl, cclients, ccfg, cgroups, dev)
+    lm_below, lm_above = selection_groups(twl, tclients, tcfg, tgroups, dev)
+    below = cnn_below + lm_below
+    return (translm_attention_shapes(tcfg, tgroups),
+            [(c, m, f) for c, m, f, _ in below], lm_above,
+            [(c, m, k) for c, m, _, k in below])
 
 
 def log_groups(groups):
@@ -1260,6 +1437,8 @@ def phase_fleet():
     bare_wall, busy, by_name = bare_and_profiled(one_round)
     log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
     log_kernel_time(by_name, busy, "distance-free (5-6)", "from_feats")
+    log_kernel_time(by_name, busy, "BUILD over D (2)", "build_cost_walk")
+    log_kernel_time(by_name, busy, "Δ-sweep over D (3)", "delta_sweep_")
     ewall, parts = stream_time_by_part(one_round)
     log(f"  stream time by part (one more round with CUDA events, wall "
         f"{ewall:.3f} s): " + ", ".join(
@@ -1375,6 +1554,8 @@ def phase_translm(wl, clients, specs, cfg, groups):
     log_kernel_time(by_name, busy, "flash-attention", "flash_attention")
     log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
     log_kernel_time(by_name, busy, "distance-free (5-6)", "from_feats")
+    log_kernel_time(by_name, busy, "BUILD over D (2)", "build_cost_walk")
+    log_kernel_time(by_name, busy, "Δ-sweep over D (3)", "delta_sweep_")
     step_host_breakdown(wl, cfg, groups, torch.device("cuda"))
     return kept, launches
 
@@ -1546,6 +1727,8 @@ def phase_xlstm(wl, clients, specs, cfg, groups):
     log_kernel_time(by_name, busy, "RMSNorm", "rmsnorm")
     log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
     log_kernel_time(by_name, busy, "distance-free (5-6)", "from_feats")
+    log_kernel_time(by_name, busy, "BUILD over D (2)", "build_cost_walk")
+    log_kernel_time(by_name, busy, "Δ-sweep over D (3)", "delta_sweep_")
     step_host_breakdown(wl, cfg, groups, torch.device("cuda"),
                         kernel="rmsnorm")
     return kept, launches
@@ -1637,23 +1820,31 @@ def phase_xlstm_ab(wl, clients, specs, cfg, kept):
 
 T0 = time.time()          # the script's start, shared with its lanes
 PHASE_SECONDS = {}
+# what a lane hands the script besides its launches and phase seconds
+# (the sync lane: phase 3's (M, k) of kernels 2 and 3)
+LANE_RESULTS = {}
 
 
 # (source, kernel) of each kernel whose contract is a rounded product
-# and then a rounded add a term: the pairwise kernel (1 and 4) and the
-# passes of kernels 5 and 6
+# and then a rounded add a term: the pairwise kernel (1 and 4), the
+# passes of kernels 5 and 6, kernel 2's walk and kernel 3's walk and B
+# segments
 SUM_LOOP_KERNELS = (("pairwise_l2.cu", "pairwise_l2_kernel"),
                     ("kmedoids_from_feats.cu", "from_feats_distances"),
                     ("kmedoids_from_feats.cu", "from_feats_column_walk"),
-                    ("kmedoids_from_feats.cu", "from_feats_sweep_product"))
+                    ("kmedoids_from_feats.cu", "from_feats_sweep_product"),
+                    ("build_cost.cu", "build_cost_walk"),
+                    ("delta_sweep.cu", "delta_sweep_walk"),
+                    ("delta_sweep.cu", "delta_sweep_segments"))
 
 
 def check_sum_loops_sass():
     """The k-loops of the pairwise kernel and of kernels 5 and 6's
     distance pass, and the i-loops of their column walks and Δ-sweep
-    product, hold no FFMA (``tools/kernel_sass.py`` on ``cuobjdump -sass``
-    of the built libraries): a multiply-add contracted by some compiler
-    would change the bits."""
+    product, of kernel 2's walk and of kernel 3's walk and B segments,
+    hold no FFMA (``tools/kernel_sass.py`` on ``cuobjdump -sass`` of the
+    built libraries): a multiply-add contracted by some compiler would
+    change the bits."""
     import re
 
     sys.path.insert(0, str(ROOT / "tools"))
@@ -1716,7 +1907,8 @@ def lane_sync_cnn():
     main paths."""
     with phase("main_path", "3: main path, FedCore on SmallCNN (28x28, "
                "16/32, F=1568), 200 clients, 3 rounds x 10 clients, E=5"):
-        clients, cfg, kout, kstrat, launches = phase_main_path()
+        clients, cfg, kout, kstrat, launches, shapes = phase_main_path()
+    LANE_RESULTS["sync_shapes"] = shapes
     with phase("plain_ab", "4: the same run with use_kernel=False"):
         phase_plain_ab(clients, cfg, kout, kstrat)
     with phase("other_models", "5: the other paper models"):
@@ -1789,14 +1981,15 @@ def lane_main(name: str, parent: int) -> int:
                 "xlstm": lane_xlstm}[name]()
     tmp = LANE_DIR / f"{name}.json.tmp"
     tmp.write_text(json.dumps({"launches": launches,
-                               "phases": PHASE_SECONDS}))
+                               "phases": PHASE_SECONDS, **LANE_RESULTS}))
     tmp.replace(LANE_DIR / f"{name}.json")
     return 0
 
 
 def run_lanes():
     """Start the lanes, wait for all of them, print their output in
-    order; returns their merged results.  Any lane's failure stops the
+    order; returns their merged launch counts and phase seconds and the
+    sync path's (M, k) of kernels 2 and 3.  Any lane's failure stops the
     others and fails the phase, as does the deadline."""
     import shutil
 
@@ -1835,12 +2028,13 @@ def run_lanes():
     check(not failed, f"lane(s) {', '.join(failed)} failed or were stopped "
           f"(exits {[procs[n].returncode for n in failed]}; deadline "
           f"{LANE_DEADLINE_S:.0f} s)")
-    by_path, phases = {}, {}
+    by_path, phases, shapes = {}, {}, []
     for name in LANES:
         res = json.loads((LANE_DIR / f"{name}.json").read_text())
         by_path.update(res["launches"])
         phases.update(res["phases"])
-    return by_path, phases
+        shapes += [tuple(s) for s in res.get("sync_shapes", ())]
+    return by_path, phases, shapes
 
 
 def main() -> int:
@@ -1883,19 +2077,14 @@ def main() -> int:
 
     with phase("kernels", "2: kernels against their plain versions (rtol "
                "1e-5, atol 1e-5*max|plain|)"):
-        twl, tclients, _, tcfg, tgroups = translm_fleet()
-        cwl = cnn_fleet_workload()
-        cclients = cwl.make_clients()
-        _, ccfg, cgroups = fleet_setup(cwl, cclients)
-        cnn_below, _ = selection_groups(cwl, cclients, ccfg, cgroups, dev)
-        lm_below, lm_above = selection_groups(twl, tclients, tcfg, tgroups,
-                                              dev)
-        kernels = phase_kernels(dev, translm_attention_shapes(tcfg, tgroups),
-                                cnn_below + lm_below, lm_above)
+        kernels = phase_kernels(dev, kernel_cases(dev, *phase2_groups(dev)))
     log(f"[{time.time() - T0:.0f} s] == phases 3-11 in three concurrent "
         f"lanes: 3-7 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 ({LANES[2]})")
-    by_path, lane_phases = run_lanes()
+    by_path, lane_phases, sync_shapes = run_lanes()
     PHASE_SECONDS.update(lane_phases)
+    with phase("kernels_sync", "2, continued: kernels 2 and 3 at the sync "
+               "path's (M, K) of phase 3"):
+        phase_kernels(dev, sync_cases(dev, sync_shapes), kernels)
 
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                       PHASE_SECONDS.items())

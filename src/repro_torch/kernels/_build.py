@@ -38,7 +38,7 @@ KERNELS = {
     "build_cost": ("build_cost.cu", "fedcore_build_cost",
                    [_P] * 4 + [_I] * 2 + [_P]),
     "delta_sweep": ("delta_sweep.cu", "fedcore_delta_sweep",
-                    [_P] * 7 + [_I] * 3 + [_P]),
+                    [_P] * 9 + [_I] * 3 + [_P]),
     "pairwise_l2_batched": ("pairwise_l2.cu", "fedcore_pairwise_l2_batched",
                             [_P] * 3 + [_I] * 6 + [_P]),
     "build_cost_from_feats": ("kmedoids_from_feats.cu",

@@ -45,13 +45,11 @@
 // 2. Reductions over the workspace, one output a thread, each summing
 //    its rows in order.
 //    * Column walks (from_feats_column_walk: kernel 5's cost, kernel 6's
-//      A).  One warp a block and an 8-column slice, so a cohort of C
-//      clients spreads over C * ceil(M/8) blocks (256 at (1, 2048)); the
-//      warp streams its slice through a 10-stage cp.async ring of 32-row
-//      chunks.  An output's chain of M adds runs at a warp's pace a row
-//      whatever its width, so narrow slices put more chains on each SM:
-//      at (1, 2048) 32, 16 and 8 columns a block took 0.0246, 0.0204 and
-//      0.0180 ms (H100, tools/from_feats_times.py).
+//      A): the walk of column_walk.cuh, which kernels 2 and 3 run over a
+//      stored D.  One warp a block and an 8-column slice, so a cohort of
+//      C clients spreads over C * ceil(M/8) blocks (256 at (1, 2048));
+//      the warp streams its slice through a 10-stage cp.async ring of
+//      32-row chunks.
 //    * The Delta-sweep's B (from_feats_sweep_product): the dense
 //      product contrib^T @ H over i in order, a block a 32 x 32 tile of
 //      (j, l) (320 blocks at (1, 2048, 130)), 256 threads with 2 x 2
@@ -81,13 +79,12 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "column_walk.cuh"
 #include "pairwise_tile.cuh"
 
 namespace {
 
 using namespace pairwise_tile;
-
-constexpr float kBig = 1e30f;  // padded-candidate mask
 
 // ---------------------------------------------------------------------------
 // pass 1: distances into the workspace
@@ -182,114 +179,26 @@ int distances(int tile, const float* x, const float* sq, float* ws, int c,
 }
 
 // ---------------------------------------------------------------------------
-// pass 2: column walks (kernel 5's cost, kernel 6's A)
+// pass 2: column walks (kernel 5's cost, kernel 6's A; column_walk.cuh)
 // ---------------------------------------------------------------------------
 
-constexpr int kWalkCols = 8;     // a block's slice of columns
-constexpr int kWalkRows = 32;    // rows a stage
-constexpr int kWalkStages = 10;  // stages in flight
-
-// out[c, j] (+)= sum over the band's rows i in order of
-//   BUILD: min(p_i, W_ij) * v_i          (p = d_near)
-//   A:     (min(W_ij, p_i) - p_i) * v_i  (p = d1)
-// ws (c, rows, m) the band's distances, p and v (c, m); the first band
-// starts at 0, a later one at the sums in out; the last band masks
-// padded candidates to 1e30.  One warp a block, blockIdx.x = client *
-// ctiles + column tile; lane l adds column l % kWalkCols (the lanes past
-// kWalkCols repeat those sums and store nothing), and all 32 lanes copy.
+// The walk over the band's distances, padded candidates masked to 1e30
+// on the last band.
 template <bool BUILD, bool VEC>
 __global__ void __launch_bounds__(32)
 from_feats_column_walk(const float* __restrict__ ws,
                        const float* __restrict__ p,
                        const float* __restrict__ v, float* __restrict__ out,
                        int m, int r0, int rows, int ctiles) {
-  __shared__ __align__(16) float s_w[kWalkStages][kWalkRows][kWalkCols];
-  __shared__ __align__(16) float s_p[kWalkStages][kWalkRows];
-  __shared__ __align__(16) float s_v[kWalkStages][kWalkRows];
-
-  const int lane = threadIdx.x;
-  const int col = lane % kWalkCols;
-  const size_t client = blockIdx.x / ctiles;
-  const int j0 = (blockIdx.x % ctiles) * kWalkCols;
-  const int j = j0 + col;
-  ws += client * rows * m;
-  const float* pc = p + client * m + r0;
-  const float* vc = v + client * m + r0;
-  out += client * m;
-
-  // a stage: 32 rows of the slice, and the rows' p and v; zeros past the
-  // band and the matrix
-  auto stage = [&](int s, int chunk) {
-    const int i0 = chunk * kWalkRows;
-    constexpr int kW = VEC ? 4 : 1;               // floats a copy moves
-    constexpr int kLanes = kWalkCols / kW;        // copies a row takes
-    constexpr int kPass = 32 / kLanes;            // rows a pass
-    const int cc = (lane % kLanes) * kW;
-#pragma unroll
-    for (int q = 0; q < kWalkRows / kPass; ++q) {
-      const int r = lane / kLanes + kPass * q, i = i0 + r;
-      const bool ok = i < rows && j0 + cc < m;
-      copy_async<VEC>(&s_w[s][r][cc],
-                      ok ? ws + static_cast<size_t>(i) * m + j0 + cc : ws,
-                      ok);
-    }
-    const bool ok = i0 + lane < rows;
-    copy_async<false>(&s_p[s][lane], ok ? pc + i0 + lane : pc, ok);
-    copy_async<false>(&s_v[s][lane], ok ? vc + i0 + lane : vc, ok);
-  };
-
-  float acc = 0.f;
-  if (r0 > 0 && j < m) acc = out[j];
-  const int nchunks = (rows + kWalkRows - 1) / kWalkRows;
-#pragma unroll
-  for (int s = 0; s < kWalkStages - 1; ++s) {
-    if (s < nchunks) stage(s, s);
-    commit_async();
-  }
-  for (int kc = 0; kc < nchunks; ++kc) {
-    wait_async<kWalkStages - 2>();
-    // every lane's copies of this stage have landed, and every lane is
-    // done with the stage consumed one chunk ago
-    __syncwarp();
-    const int next = kc + kWalkStages - 1;
-    if (next < nchunks) stage(next % kWalkStages, next);
-    commit_async();
-
-    const int s = kc % kWalkStages;
-#pragma unroll
-    for (int r = 0; r < kWalkRows; r += 4) {
-      const float4 p4 = *reinterpret_cast<const float4*>(&s_p[s][r]);
-      const float4 v4 = *reinterpret_cast<const float4*>(&s_v[s][r]);
-      const float pr[4] = {p4.x, p4.y, p4.z, p4.w};
-      const float vr[4] = {v4.x, v4.y, v4.z, v4.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float w = s_w[s][r + q][col];
-        const float term =
-            BUILD ? __fmul_rn(fminf(pr[q], w), vr[q])
-                  : __fmul_rn(__fsub_rn(fminf(w, pr[q]), pr[q]), vr[q]);
-        acc = __fadd_rn(acc, term);
-      }
-    }
-  }
-  wait_async<0>();
-  if (lane < kWalkCols && j < m)
-    out[j] = (r0 + rows < m || v[client * m + j] > 0.f) ? acc : kBig;
+  column_walk::walk<BUILD, VEC, true>(ws, p, v, out, m, r0, rows, ctiles);
 }
 
 template <bool BUILD>
-int column_walk(const float* ws, const float* p, const float* v, float* out,
-                int c, int m, int r0, int rows, cudaStream_t stream) {
-  const long long ctiles = (m + kWalkCols - 1) / kWalkCols;
-  if (ctiles * c > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>(ctiles * c);
-  if (rows_aligned(ws, ws, m))
-    from_feats_column_walk<BUILD, true><<<grid, 32, 0, stream>>>(
-        ws, p, v, out, m, r0, rows, static_cast<int>(ctiles));
-  else
-    from_feats_column_walk<BUILD, false><<<grid, 32, 0, stream>>>(
-        ws, p, v, out, m, r0, rows, static_cast<int>(ctiles));
-  return static_cast<int>(cudaGetLastError());
+int column_walks(const float* ws, const float* p, const float* v, float* out,
+                 int c, int m, int r0, int rows, cudaStream_t stream) {
+  return column_walk::launch(from_feats_column_walk<BUILD, true>,
+                             from_feats_column_walk<BUILD, false>, ws, p, v,
+                             out, c, m, r0, rows, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -481,8 +390,8 @@ extern "C" int fedcore_build_cost_from_feats(const float* x, const float* sq,
                                              void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   int rc = distances(tile, x, sq, ws, c, m, f, r0, rows, st);
-  if (rc == 0) rc = column_walk<true>(ws, d_near, vf, cost, c, m, r0, rows,
-                                      st);
+  if (rc == 0) rc = column_walks<true>(ws, d_near, vf, cost, c, m, r0, rows,
+                                       st);
   return rc;
 }
 
@@ -499,7 +408,7 @@ extern "C" int fedcore_delta_sweep_from_feats(const float* x, const float* sq,
                                               void* stream) {
   const auto st = static_cast<cudaStream_t>(stream);
   int rc = distances(tile, x, sq, ws, c, m, f, r0, rows, st);
-  if (rc == 0) rc = column_walk<false>(ws, d1, vf, A, c, m, r0, rows, st);
+  if (rc == 0) rc = column_walks<false>(ws, d1, vf, A, c, m, r0, rows, st);
   if (rc == 0 && k > 0)
     rc = sweep_product(ws, d1, d2, vf, H, B, c, m, k, r0, rows, st);
   return rc;

@@ -247,7 +247,9 @@ def kmedoids_delta_sweep(D: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
 
     D (C, M, M); d1/d2/vf (C, M); n_onehot (C, M, K).  Returns
     (A (C, M), B (C, M, K)) with Δ(j, l) = A[:, j] + B[:, j, l] — see
-    ``ref.kmedoids_delta_sweep_ref`` for the math."""
+    ``ref.kmedoids_delta_sweep_ref`` for the math.  On the card B costs
+    one term for each nonzero of ``n_onehot`` and j (any ``n_onehot``;
+    D, d1 and d2 finite): three launches, one counted."""
     if not resolve_use_kernel(use_kernel, D.device):
         return ref.kmedoids_delta_sweep_ref(D, d1, d2, vf, n_onehot)
     c, m, k = D.shape[0], D.shape[1], n_onehot.shape[-1]
@@ -257,10 +259,15 @@ def kmedoids_delta_sweep(D: torch.Tensor, d1: torch.Tensor, d2: torch.Tensor,
     _check("delta_sweep n_onehot", n_onehot, (c, m, k), D.device)
     A = torch.empty((c, m), dtype=torch.float32, device=D.device)
     B = torch.empty((c, m, k), dtype=torch.float32, device=D.device)
-    if B.numel():
+    # the slot lists' scratch, one allocation: each slot's count, then
+    # room for M rows a slot; sized from the shapes alone, so no count is
+    # read back to the host
+    lists = torch.empty(c * k * (m + 1), dtype=torch.int32, device=D.device)
+    if A.numel():
         _launch("delta_sweep", D.device, D.data_ptr(), d1.data_ptr(),
                 d2.data_ptr(), vf.data_ptr(), n_onehot.data_ptr(),
-                A.data_ptr(), B.data_ptr(), c, m, k)
+                A.data_ptr(), B.data_ptr(), lists.data_ptr() + 4 * c * k,
+                lists.data_ptr(), c, m, k)
     return A, B
 
 

@@ -113,6 +113,138 @@ def test_delta_sweep_kernel_matches_plain(cuda, c, m, k):
     _same(B, B_ref)
 
 
+# kernels 2 and 3 over a stored D: the column walk (kernel 2, kernel 3's
+# A) and the slot-list sums (kernel 3's B); M around the walk's 8-column
+# slices and 32-row stages, the sync path's M % 4 != 0 (rows of D off
+# 16-byte boundaries), the fleets' C = 8 and 25 groups
+
+@pytest.mark.parametrize("c", [1, 8, 25])
+@pytest.mark.parametrize("m", [16, 37, 128, 341, 2048])
+def test_build_cost_walk_matches_plain(cuda, c, m):
+    """Kernel 2 bit for bit, also with D's storage 4 bytes off a 16-byte
+    boundary (the walk's 4-byte copies), and one launch a call."""
+    g = torch.Generator(device="cpu").manual_seed(c * 7 + m)
+    D = torch.rand(c, m, m, generator=g).to(cuda)
+    dn = torch.rand(c, m, generator=g)
+    dn[:, 0] = 1e30
+    dn = dn.to(cuda)
+    vf = (torch.rand(c, m, generator=g) < 0.9).float().to(cuda)
+    want = ref.kmedoids_build_cost_ref(D, dn, vf)
+    before = ops.LAUNCHES["build_cost"]
+    got = ops.kmedoids_build_cost(D, dn, vf)
+    torch.cuda.synchronize()
+    _same(got, want)
+    assert ops.LAUNCHES["build_cost"] == before + 1
+    _same(ops.kmedoids_build_cost(_misaligned(D), dn, vf), want)
+
+
+def _sweep_d(g, c, m, dev):
+    D = torch.rand(c, m, m, generator=g)
+    d1 = torch.rand(c, m, generator=g)
+    d2 = d1 + torch.rand(c, m, generator=g)
+    vf = (torch.rand(c, m, generator=g) < 0.9).float()
+    return [t.to(dev) for t in (D, d1, d2, vf)]
+
+
+def _check_sweep(D, d1, d2, vf, H):
+    A_ref, B_ref = ref.kmedoids_delta_sweep_ref(D, d1, d2, vf, H)
+    before = ops.LAUNCHES["delta_sweep"]
+    A, B = ops.kmedoids_delta_sweep(D, d1, d2, vf, H)
+    torch.cuda.synchronize()
+    _same(A, A_ref)
+    _same(B, B_ref)
+    assert ops.LAUNCHES["delta_sweep"] == before + 1
+
+
+@pytest.mark.parametrize("c,m", [(1, 341), (2, 200), (1, 2048)])
+@pytest.mark.parametrize("k", [1, 7, 64, 130, None])
+def test_delta_sweep_onehot_matches_plain(cuda, c, m, k):
+    """Kernel 3 on a one-hot H at K = 1, 7, 64, 130 and M, bit for bit,
+    also with D and H off 16-byte boundaries."""
+    k = m if k is None else k
+    g = torch.Generator(device="cpu").manual_seed(c + m + k)
+    D, d1, d2, vf = _sweep_d(g, c, m, cuda)
+    idx = torch.randint(0, k, (c, m), generator=g)
+    H = torch.nn.functional.one_hot(idx, k).float().to(cuda)
+    _check_sweep(D, d1, d2, vf, H)
+    if m <= 341:
+        A_ref, B_ref = ref.kmedoids_delta_sweep_ref(D, d1, d2, vf, H)
+        A, B = ops.kmedoids_delta_sweep(_misaligned(D), d1, d2, vf,
+                                        _misaligned(H))
+        torch.cuda.synchronize()
+        _same(A, A_ref)
+        _same(B, B_ref)
+
+
+def _general_h(g, c, m, k, kind):
+    if kind == "dense":
+        return torch.randn(c, m, k, generator=g)
+    # two to four nonzeros a row, of mixed sign and not 1, and a zero row
+    # of -0.0 in each client
+    H = torch.zeros(c, m, k)
+    for ci in range(c):
+        for i in range(m):
+            n = int(torch.randint(2, 5, (1,), generator=g))
+            cols = torch.randperm(k, generator=g)[:n]
+            H[ci, i, cols] = torch.randn(len(cols), generator=g)
+        H[ci, int(torch.randint(0, m, (1,), generator=g))] = -0.0
+    return H
+
+
+@pytest.mark.parametrize("kind", ["multi", "dense"])
+@pytest.mark.parametrize("c,m,k", [(1, 37, 7), (3, 64, 13), (2, 64, 64),
+                                   (1, 33, 40)])
+def test_delta_sweep_any_h_matches_plain(cuda, kind, c, m, k):
+    """Kernel 3 on an H that is not one-hot: several nonzeros a row of
+    mixed sign and non-unit values, a zero row, and a dense random H
+    (every slot M rows long): the same bits as the dense plain product."""
+    g = torch.Generator(device="cpu").manual_seed(c * m + k)
+    D, d1, d2, vf = _sweep_d(g, c, m, cuda)
+    _check_sweep(D, d1, d2, vf, _general_h(g, c, m, k, kind).to(cuda))
+
+
+@pytest.mark.parametrize("c,m,k", [(1, 2048, 7), (1, 2048, 1),
+                                   (25, 128, 64), (1, 341, 40)])
+def test_delta_sweep_uneven_slots_match_plain(cuda, c, m, k):
+    """One slot holding 90 % of the rows (a chain of them), one more
+    holding the rest, every other slot empty (B = +0 there)."""
+    g = torch.Generator(device="cpu").manual_seed(m + k)
+    D, d1, d2, vf = _sweep_d(g, c, m, cuda)
+    idx = torch.where(torch.rand(c, m, generator=g) < 0.9, 0, min(1, k - 1))
+    H = torch.nn.functional.one_hot(idx, k).float().to(cuda)
+    _check_sweep(D, d1, d2, vf, H)
+    _, B = ops.kmedoids_delta_sweep(D, d1, d2, vf, H)
+    if k > 2:
+        assert bool((B[..., 2:] == 0).all())
+        assert not bool(torch.signbit(B[..., 2:]).any())
+
+
+def test_delta_sweep_without_slots_still_sums_a(cuda):
+    """K = 0: no slot lists and no B to sum, but A is still the walk's."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    D, d1, d2, vf = _sweep_d(g, 2, 37, cuda)
+    _check_sweep(D, d1, d2, vf, torch.zeros(2, 37, 0, device=cuda))
+
+
+def test_kmedoids_client_is_its_own_call(cuda):
+    """The loop-vs-batched invariant for kernels 2 and 3: client i of a
+    (25, 128) stack gets the bits of its own C = 1 call."""
+    g = torch.Generator(device="cpu").manual_seed(25)
+    D, d1, d2, vf = _sweep_d(g, 25, 128, cuda)
+    idx = torch.randint(0, 64, (25, 128), generator=g)
+    H = torch.nn.functional.one_hot(idx, 64).float().to(cuda)
+    cost = ops.kmedoids_build_cost(D, d1, vf)
+    A, B = ops.kmedoids_delta_sweep(D, d1, d2, vf, H)
+    for i in range(25):
+        one = [t[i:i + 1].contiguous() for t in (D, d1, d2, vf, H)]
+        c1 = ops.kmedoids_build_cost(one[0], one[1], one[3])
+        A1, B1 = ops.kmedoids_delta_sweep(*one)
+        torch.cuda.synchronize()
+        _same(cost[i:i + 1], c1)
+        _same(A[i:i + 1], A1)
+        _same(B[i:i + 1], B1)
+
+
 def test_short_fedcore_run_goes_through_the_kernels(cuda):
     from repro_torch.data import mnist_like_dataset
     from repro_torch.fed import (FedCore, FLConfig, LocalTrainer,

@@ -105,15 +105,26 @@ def cases(dev):
             if "from_feats" in name]
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def compare_main(doc: str, cases_of, call_other, match_of, passes_of,
+                 add_args=None) -> int:
+    """The command line of this tool and of ``tools/kmedoids_times.py``:
+    ``--src``, ``--json`` and the tool's own options (``add_args``); each
+    case of ``cases_of(dev, args)`` ((kernel, label, run, inputs)) checked
+    against its plain version bit for bit and timed, this tree's kernels
+    and, with ``--src``, the other tree's (``call_other(build, kernel,
+    inputs)``) in turns; ``match_of(kernel)`` names the kernels' device
+    activity, ``passes_of(kernel)`` this tree's passes."""
+    tool = Path(sys.argv[0]).name
+    ap = argparse.ArgumentParser(description=doc.split("\n")[0])
     ap.add_argument("--src", default=None)
     ap.add_argument("--json", default=None)
+    if add_args is not None:
+        add_args(ap)
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
-        print("from_feats_times.py: no CUDA device", file=sys.stderr)
+        print(f"{tool}: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -136,7 +147,7 @@ def main() -> int:
     device_ms(lambda: torch.ones(1, device=dev).sum())
     rows = []
     fmt = (lambda v: "not measured" if v is None else f"{v:.4f}")
-    for name, label, run, inputs in cases(dev):
+    for name, label, run, inputs in cases_of(dev, args):
         want = run(False)
         got = run(True)
         row = {"kernel": name, "case": label,
@@ -144,7 +155,7 @@ def main() -> int:
         this = lambda run=run: run(True)       # noqa: E731
         timed = [("this", this)]
         if other is not None:
-            that = lambda name=name, inputs=inputs: other_call(  # noqa
+            that = lambda name=name, inputs=inputs: call_other(  # noqa
                 other, name, inputs)
             row["other_exact"] = all(torch.equal(a, b) for a, b in
                                      zip(that(), want))
@@ -155,8 +166,8 @@ def main() -> int:
                                      "kernel_ms": []})
             r["ms"].append(events_ms(fn))
             r["busy_ms"].append(device_ms(fn))
-            r["kernel_ms"].append(device_ms(fn, KERNEL_MATCH))
-        row["passes_ms"] = {p: device_ms(this, p) for p in PASSES}
+            r["kernel_ms"].append(device_ms(fn, match_of(name)))
+        row["passes_ms"] = {p: device_ms(this, p) for p in passes_of(name)}
         rows.append(row)
         line = f"{name:22s} {label:32s} exact {row['exact']}"
         for who in ("this", "other"):
@@ -166,7 +177,7 @@ def main() -> int:
                          f"busy {', '.join(map(fmt, r['busy_ms']))} kernel "
                          f"{', '.join(map(fmt, r['kernel_ms']))}")
         line += " | passes " + ", ".join(
-            f"{p.split('_', 2)[-1]} {fmt(v)}" for p, v in
+            f"{p.rsplit('_', 1)[-1]} {fmt(v)}" for p, v in
             row["passes_ms"].items() if v is not None)
         if "other_exact" in row:
             line += f" | other exact {row['other_exact']}"
@@ -184,11 +195,13 @@ def main() -> int:
     bad = [r["case"] for r in rows
            if not r["exact"] or r.get("other_exact") is False]
     if bad:
-        print(f"from_feats_times.py: a kernel differs from its plain "
-              f"version: {bad}", file=sys.stderr)
+        print(f"{tool}: a kernel differs from its plain version: {bad}",
+              file=sys.stderr)
         return 1
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(compare_main(__doc__, lambda dev, args: cases(dev), other_call,
+                          lambda name: KERNEL_MATCH,
+                          lambda name: PASSES))
