@@ -121,17 +121,38 @@ phases run in order and any failure exits non-zero:
     (d) ``run_scenario("device_classes", "fleet", workload="xlstm")`` and
     ``run_scenario("uniform", "sync", workload="xlstm")`` at the
     registry's 24 clients for ``XLSTM_SCENARIO_ROUNDS`` rounds, each
-    through the RMSNorm kernel.
+    through the RMSNorm kernel;
+12. the async main path at full width: ``run_federated_async`` with
+    ``FedCore`` on ``SmallCNN()`` over phase 3's 200 clients and specs,
+    E = 5, ``FedBuff(buffer_size=10)``, 3 applied updates (30 client
+    updates) with 10 clients in flight; the launch counts are set to 0
+    just before and read just after, kernels 1-3 must each have launched
+    and every coreset been built on the card; its makespan, staleness
+    histogram, wall by span and launches are printed; then the same run
+    with ``use_kernel=False``: the event log equal byte for byte, the
+    coresets equal (or tied by phase 4's rule) and the parameters within
+    1e-4; then ``run_scenario("pareto", "async", aggregator=
+    "delayed_grad", max_updates=20)`` on the same model and clients;
+13. faults on the CNN fleet: phase 6's workload and clients under
+    ``faults="hostile"`` with ``aggregator="trimmed_mean"``, 2 batched
+    rounds, the fleet kernels each launched (groups on both sides of M =
+    256) and every client's dropped and corrupted flags as the
+    ``FaultTrace`` draws them; the same 2 rounds with
+    ``use_kernel=False`` (the same medoids per (round, client),
+    bit-identical parameters); one round of each of ``median``,
+    ``krum``, ``multi_krum`` and ``norm_clip`` under
+    ``byzantine_boost``; and ``run_scenario("uniform", "sync",
+    faults="byzantine_noise", aggregator="median")`` for 2 rounds.
 
-Phases 1-2 run alone.  Phases 3-7 (the sync runtime and the CNN fleet),
-8-9 (the ``translm`` fleet) and 10-11 (the ``xlstm`` fleet) share no
-state, and each group is host-bound (the card idles most of each round),
+Phases 1-2 run alone.  Phases 3-7 and 12-13 (the sync and async runtimes
+and the CNN fleet), 8-9 (the ``translm`` fleet) and 10-11 (the ``xlstm``
+fleet) share no state, and each group is host-bound (the card idles most of each round),
 so they run as three concurrent processes on the one card, each a
 *lane* (``python3 chip_smoke.py --lane NAME``, started by the script
 itself): a lane sets its own launch counts to 0 around its main path,
 writes its launch counts and phase seconds to ``build/chip_smoke/``, and
 its output is printed in phase order once every lane has ended.  Round
-walls, idle shares and step times of phases 3-11 are therefore taken
+walls, idle shares and step times of phases 3-13 are therefore taken
 with the other two lanes running.  A lane that fails stops the others;
 lanes still running ``LANE_DEADLINE_S`` seconds after the start are
 stopped and the script fails with what they printed so far.
@@ -155,7 +176,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 LANE_DIR = ROOT / "build" / "chip_smoke"
-# the lanes of phases 3-11, run concurrently (see the module docstring)
+# the lanes of phases 3-13, run concurrently (see the module docstring)
 LANES = ("sync_cnn", "translm", "xlstm")
 # lanes still running this long after the start are stopped: the whole
 # script must end within 1200 s
@@ -1009,11 +1030,6 @@ def phase_main_path():
 
 
 def phase_plain_ab(clients, cfg, kout, kstrat):
-    import numpy as np
-    import torch
-
-    from repro_torch.core.coreset import build_coreset
-    from repro_torch.core.kmedoids import medoid_objective_f64
     from repro_torch.models import SmallCNN
 
     pout, pstrat, _, launches, wall = run_fl(SmallCNN(), clients, cfg,
@@ -1021,6 +1037,21 @@ def phase_plain_ab(clients, cfg, kout, kstrat):
     log(f"  plain run: wall {wall:.2f} s, launches {launches}")
     check(all(n == 0 for n in launches.values()),
           f"use_kernel=False launched a kernel: {launches}")
+    check_plain_selections(kout, kstrat, pout, pstrat)
+
+
+def check_plain_selections(kout, kstrat, pout, pstrat):
+    """A kernel run's selections against a plain run's: every kernel-run
+    selection equal to the plain solver's on the same features, or tied
+    with it in the float64 objective (1e-5 relative); the runs' coresets
+    equal up to a tie, and their final parameters within 1e-4 when no
+    selection parted them."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.coreset import build_coreset
+    from repro_torch.core.kmedoids import medoid_objective_f64
+
     check(len(pstrat.selected) == len(kstrat.selected),
           "the plain run built another number of coresets")
     first_diff = None
@@ -1119,9 +1150,11 @@ def cnn_fleet_workload():
         description="SmallCNN at the paper's widths on pseudo-MNIST")
 
 
-def run_fleet_recorded(wl, clients, specs, cfg, rounds, engine):
+def run_fleet_recorded(wl, clients, specs, cfg, rounds, engine, faults=None,
+                       stats=None):
     """One ``run_fleet`` on the card with recording on, keeping each
-    round's medoids {cid: indices} and aggregated parameters; returns
+    round's medoids {cid: indices} and aggregated parameters (and its
+    ``FleetRoundStats`` in ``stats``, a list, when given); returns
     (output, [(medoids, params)] per round, span records, launch counts,
     wall seconds)."""
     import numpy as np
@@ -1136,11 +1169,13 @@ def run_fleet_recorded(wl, clients, specs, cfg, rounds, engine):
     inner = fleet_batched.run_fleet_round
 
     def recording_round(*args, **kwargs):
-        params, stats = inner(*args, **kwargs)
+        params, round_stats = inner(*args, **kwargs)
         kept.append(({int(c): np.asarray(m) for c, m in
-                      stats.medoids.items()},
+                      round_stats.medoids.items()},
                      {k: v.clone() for k, v in params.items()}))
-        return params, stats
+        if stats is not None:
+            stats.append(round_stats)
+        return params, round_stats
 
     sink = InMemorySink()
     fleet_batched.run_fleet_round = recording_round
@@ -1150,7 +1185,8 @@ def run_fleet_recorded(wl, clients, specs, cfg, rounds, engine):
         t0 = time.perf_counter()
         with use_recorder(Recorder([sink])):
             out = run_fleet(wl, clients, specs, cfg, rounds,
-                            straggler_pct=30.0, engine=engine)
+                            straggler_pct=30.0, engine=engine,
+                            faults=faults)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
@@ -1510,6 +1546,239 @@ def phase_fleet_ab(wl, clients, specs, cfg, kept, params_atol, rounds):
     plaunches = plain_selection_ab(wl, clients, specs, cfg, kept, rounds)
     llaunches = loop_round_ab(wl, clients, specs, cfg, kept, params_atol)
     return plaunches, llaunches
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the async runtime
+# ---------------------------------------------------------------------------
+
+def run_async(model, clients, specs, cfg, use_kernel=None):
+    """One ``run_federated_async`` with ``FedCore`` and
+    ``FedBuff(buffer_size=10)`` on the card, recording on; returns
+    (output, strategy, span records, launch counts, wall seconds)."""
+    import torch
+
+    from repro_torch.core.coreset import FedCoreConfig
+    from repro_torch.fed import FedBuff, LocalTrainer, run_federated_async
+    from repro_torch.kernels import ops
+    from repro_torch.obs import InMemorySink, Recorder, use_recorder
+
+    strategy = recording_fedcore()(
+        LocalTrainer(model, cfg.lr, cfg.batch_size),
+        FedCoreConfig(use_kernel=use_kernel))
+    init = model.init(torch.Generator().manual_seed(cfg.seed))
+    sink = InMemorySink()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with use_recorder(Recorder([sink])):
+        out = run_federated_async(model, clients, specs, strategy, cfg,
+                                  aggregator=FedBuff(buffer_size=10),
+                                  init_params=init)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, strategy, sink.records, dict(ops.LAUNCHES), wall
+
+
+def log_async(out, records, wall):
+    """The run's makespan, staleness histogram, wall by span and
+    records."""
+    t = out["telemetry"]
+    log(f"  wall {wall:.2f} s; makespan {t['makespan']!r} virtual s; "
+        f"staleness histogram {t['staleness_hist'].tolist()} (mean "
+        f"{t['mean_staleness']:.3f}); {t['n_dispatches']} dispatches, "
+        f"{t['n_updates_applied']} updates applied, {t['n_dropped']} "
+        f"dropped, {t['n_violations']} violations; client utilization "
+        f"{t['client_utilization']:.4f}")
+    spans = {}
+    for r in records:
+        if r["kind"] == "span":
+            n, d = spans.get(r["name"], (0, 0.0))
+            spans[r["name"]] = (n + 1, d + r["dur"])
+    log("  wall by span: " + ", ".join(
+        f"{k} {n}x {d:.3f} s ({100 * d / wall:.1f}%)"
+        for k, (n, d) in sorted(spans.items(), key=lambda kv: -kv[1][1])))
+    for h in out["history"]:
+        log(f"  record {h.round}: sim_round_time {h.sim_round_time!r} "
+            f"n_participants {h.n_participants} n_coreset {h.n_coreset} "
+            f"train_loss {h.train_loss:.4f}")
+    return {r["attrs"].get("device") for r in records
+            if r["kind"] == "span" and r["name"] == "selection"}
+
+
+def phase_async(clients):
+    """Phase 12: ``run_federated_async`` at full width, its plain A/B and
+    one ``run_scenario("pareto", "async")``; returns the main run's
+    launch counts."""
+    import numpy as np
+
+    from repro_torch.fed import AsyncFLConfig, make_client_specs
+    from repro_torch.fed.fleet import SCENARIOS, run_scenario
+    from repro_torch.kernels import ops
+    from repro_torch.models import SmallCNN
+    from repro_torch.obs import InMemorySink, Recorder, use_recorder
+
+    specs = make_client_specs([len(d["y"]) for d in clients],
+                              np.random.default_rng(0))
+    cfg = AsyncFLConfig(max_updates=3, concurrency=10, epochs=5,
+                        batch_size=8, lr=0.03, straggler_pct=30.0,
+                        record_every=1)
+    kout, kstrat, records, launches, wall = run_async(SmallCNN(), clients,
+                                                      specs, cfg)
+    devices = log_async(kout, records, wall)
+    log(f"  launches on the async path: {launches}; {len(kstrat.selected)} "
+        f"coresets, budgets {[b for _, b, _ in kstrat.selected]}")
+    check(kout["telemetry"]["n_updates_applied"] == 3,
+          "the async run applied another number of updates")
+    check(len(kstrat.selected) > 0, "the async run built no coreset")
+    check(all(launches[k] > 0 for k in SYNC_KERNELS),
+          f"a kernel never launched on the async path: {launches}")
+    check(all(str(d).startswith("cuda") for d in devices),
+          f"an async coreset was built off the card: {devices}")
+    check_params(kout)
+
+    pout, pstrat, _, plaunches, pwall = run_async(SmallCNN(), clients,
+                                                  specs, cfg,
+                                                  use_kernel=False)
+    log(f"  plain run: wall {pwall:.2f} s, launches {plaunches}")
+    check(all(n == 0 for n in plaunches.values()),
+          f"use_kernel=False launched a kernel: {plaunches}")
+    check(pout["event_log"] == kout["event_log"],
+          "the plain run's event log differs from the kernel run's")
+    log(f"  event logs equal byte for byte ({len(kout['event_log'])} "
+        f"events)")
+    check_plain_selections(kout, kstrat, pout, pstrat)
+
+    sink = InMemorySink()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with use_recorder(Recorder([sink])):
+        sout = run_scenario("pareto", "async", model=SmallCNN(),
+                            clients_data=clients, aggregator="delayed_grad",
+                            max_updates=20)
+    swall = time.perf_counter() - t0
+    slaunches = dict(ops.LAUNCHES)
+    log(f"  run_scenario('pareto', 'async', delayed_grad, max_updates=20): "
+        f"capability trace {SCENARIOS['pareto'].trace_config(0)}")
+    log_async(sout, sink.records, swall)
+    log(f"  launches: {slaunches}")
+    check(sout["aggregator"] == "delayed_grad" and
+          sout["telemetry"]["n_updates_applied"] == 20,
+          "the scenario's async run did not apply 20 delayed gradients")
+    check_params(sout)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: faults on the CNN fleet
+# ---------------------------------------------------------------------------
+
+def expected_fault_stats(profile, n, seed, rounds):
+    """Each round's (cohort, dropped, corrupted) as the ``FaultTrace`` of
+    ``profile`` says a fleet of every present client gives them."""
+    import numpy as np
+
+    from repro_torch.fed.fleet import FAULT_PROFILES, FaultTrace
+
+    ft = FaultTrace(FAULT_PROFILES[profile], n, seed=seed)
+    counts = np.zeros(n, np.int64)
+    out = []
+    for r in range(rounds):
+        cohort = np.nonzero(ft.present_mask(r))[0]
+        dropped = {int(c): ft.dropped(int(c), int(counts[c]))
+                   for c in cohort}
+        corrupt = {int(c): bool(ft.byzantine[c]) and not dropped[int(c)]
+                   for c in cohort}
+        counts[cohort] += 1
+        out.append((set(int(c) for c in cohort), dropped, corrupt))
+    return out
+
+
+def phase_fleet_faults(wl, clients, specs, cfg, sync_clients):
+    """Phase 13: the CNN fleet under ``hostile`` with the trimmed mean, its
+    plain A/B, one round of each other robust rule under
+    ``byzantine_boost``, and a faulted sync scenario; returns the faulted
+    fleet's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.fed.fleet import run_fleet, run_scenario
+    from repro_torch.kernels import ops
+    from repro_torch.models import SmallCNN
+    from repro_torch.obs import InMemorySink, Recorder, use_recorder
+
+    rounds = 2
+    tcfg = dataclasses.replace(cfg, aggregator="trimmed_mean")
+    stats = []
+    out, kept, records, launches, wall = run_fleet_recorded(
+        wl, clients, specs, tcfg, rounds, "batched", faults="hostile",
+        stats=stats)
+    report_fleet_rounds(records)
+    for h in out["history"]:
+        log(f"  round {h.round}: n_participants {h.n_participants} "
+            f"n_dropped {h.n_dropped} n_coreset {h.n_coreset} "
+            f"sim_round_time {h.sim_round_time:.4f} train_loss "
+            f"{h.train_loss:.4f}")
+    log(f"  wall {wall:.2f} s; launches on the faulted fleet path: "
+        f"{launches}")
+    check(all(launches[k] > 0 for k in FLEET_KERNELS),
+          f"a fleet kernel never launched under faults: {launches}")
+    want = expected_fault_stats("hostile", len(specs), cfg.seed, rounds)
+    for r, (st, (cohort, dropped, corrupt)) in enumerate(zip(stats, want)):
+        got_d = {int(c): bool(d) for c, d in zip(st.cids, st.dropped)}
+        got_c = {int(c): bool(x) for c, x in zip(st.cids, st.corrupted)}
+        check(set(got_d) == cohort, f"round {r}: the cohort is not the "
+              f"FaultTrace's present clients")
+        check(got_d == dropped and got_c == corrupt,
+              f"round {r}: dropped / corrupted stats differ from the "
+              f"FaultTrace's")
+        log(f"  round {r}: {len(cohort)} present, {sum(dropped.values())} "
+            f"dropped, {sum(corrupt.values())} corrupted, as the "
+            f"FaultTrace draws them")
+    check_params(out)
+
+    _, pkept, _, plaunches, pwall = run_fleet_recorded(
+        wl, clients, specs, dataclasses.replace(tcfg, use_kernel=False),
+        rounds, "batched", faults="hostile")
+    log(f"  plain run ({rounds} rounds): wall {pwall:.2f} s, launches "
+        f"{plaunches}")
+    check(all(plaunches[k] == 0 for k in SELECTION_KERNELS),
+          f"use_kernel=False launched a selection kernel: {plaunches}")
+    check_same_rounds(kept, pkept, rounds, "faulted kernel and plain")
+
+    for method in ("median", "krum", "multi_krum", "norm_clip"):
+        rec = Recorder([InMemorySink()])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with use_recorder(rec):
+            mout = run_fleet(wl, clients, specs,
+                             dataclasses.replace(cfg, aggregator=method), 1,
+                             straggler_pct=30.0, faults="byzantine_boost")
+        torch.cuda.synchronize()
+        n_bad = rec.metrics.snapshot()["counters"].get(
+            "faults.corrupted_updates", 0)
+        log(f"  {method} under byzantine_boost, one round: wall "
+            f"{time.perf_counter() - t0:.2f} s, {n_bad} corrupted updates, "
+            f"train_loss {mout['history'][0].train_loss:.4f}")
+        check(n_bad > 0, f"{method}: no update was corrupted")
+        check_params(mout)
+
+    rec = Recorder([InMemorySink()])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with use_recorder(rec):
+        sout = run_scenario("uniform", "sync", model=SmallCNN(),
+                            clients_data=sync_clients, rounds=2,
+                            faults="byzantine_noise", aggregator="median")
+    counters = rec.metrics.snapshot()["counters"]
+    log(f"  run_scenario('uniform', 'sync', byzantine_noise, median), 2 "
+        f"rounds: wall {time.perf_counter() - t0:.2f} s, "
+        f"{counters.get('faults.corrupted_updates', 0)} corrupted updates, "
+        f"launches {dict(ops.LAUNCHES)}")
+    check(sout["faults"] == "byzantine_noise", "the scenario lost its faults")
+    check_params(sout)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1903,8 +2172,8 @@ def char_lm_clients():
 
 
 def lane_sync_cnn():
-    """Phases 3-7; returns the launch counts of the sync and CNN fleet
-    main paths."""
+    """Phases 3-7 and 12-13; returns the launch counts of the sync, CNN
+    fleet, async and faulted CNN fleet paths."""
     with phase("main_path", "3: main path, FedCore on SmallCNN (28x28, "
                "16/32, F=1568), 200 clients, 3 rounds x 10 clients, E=5"):
         clients, cfg, kout, kstrat, launches, shapes = phase_main_path()
@@ -1921,7 +2190,16 @@ def lane_sync_cnn():
                "engine='loop'"):
         phase_fleet_ab(wl, fclients, fspecs, fcfg, fkept, PARAMS_ATOL_CNN,
                        len(fkept))
-    return {"sync": launches, "fleet": flaunches}
+    with phase("async", "12: async main path, run_federated_async with "
+               "FedCore on SmallCNN (28x28, 16/32, F=1568), phase 3's 200 "
+               "clients, FedBuff(10), 3 updates, concurrency 10, E=5"):
+        alaunches = phase_async(clients)
+    with phase("fleet_faults", "13: faults on the CNN fleet, 'hostile' with "
+               "the trimmed mean, the robust rules under 'byzantine_boost', "
+               "a faulted sync scenario"):
+        xlaunches = phase_fleet_faults(wl, fclients, fspecs, fcfg, clients)
+    return {"sync": launches, "fleet": flaunches, "async": alaunches,
+            "fleet_faults": xlaunches}
 
 
 def lane_translm():
@@ -2078,8 +2356,9 @@ def main() -> int:
     with phase("kernels", "2: kernels against their plain versions (rtol "
                "1e-5, atol 1e-5*max|plain|)"):
         kernels = phase_kernels(dev, kernel_cases(dev, *phase2_groups(dev)))
-    log(f"[{time.time() - T0:.0f} s] == phases 3-11 in three concurrent "
-        f"lanes: 3-7 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 ({LANES[2]})")
+    log(f"[{time.time() - T0:.0f} s] == phases 3-13 in three concurrent "
+        f"lanes: 3-7 and 12-13 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 "
+        f"({LANES[2]})")
     by_path, lane_phases, sync_shapes = run_lanes()
     PHASE_SECONDS.update(lane_phases)
     with phase("kernels_sync", "2, continued: kernels 2 and 3 at the sync "

@@ -1,4 +1,5 @@
-"""The synchronous FL runtime (Alg. 1) in PyTorch."""
+"""The FL runtimes in PyTorch: the synchronous round server (Alg. 1), the
+event-driven async runtime, their aggregators and the fault axis."""
 from repro_torch.fed.cost import (  # noqa: F401  (leaf module: import first)
     FORWARD_FRAC,
     UNIT_COST,
@@ -7,8 +8,25 @@ from repro_torch.fed.cost import (  # noqa: F401  (leaf module: import first)
     resolve_cost,
 )
 from repro_torch.fed.aggregators import (  # noqa: F401
+    AGGREGATORS,
+    ROBUST_METHODS,
+    Aggregator,
+    ClientUpdate,
+    DelayedGradient,
+    FedAsync,
+    FedBuff,
+    RobustAggregate,
     SyncWeightedMean,
+    polynomial_staleness,
+    robust_combine,
+    stack_params,
     weighted_mean_params,
+)
+from repro_torch.fed.events import (  # noqa: F401
+    AsyncFLConfig,
+    Event,
+    EventQueue,
+    run_federated_async,
 )
 from repro_torch.fed.server import (  # noqa: F401
     FLConfig,
@@ -35,4 +53,14 @@ from repro_torch.fed.strategies import (  # noqa: F401
     FedProx,
     LocalTrainer,
     Strategy,
+)
+
+# the fleet subpackage imports the server and simulator, so this stays the
+# last import of this module
+from repro_torch.fed.fleet.faults import (  # noqa: E402,F401
+    FAULT_PROFILES,
+    FaultProfile,
+    FaultTrace,
+    dirichlet_label_skew,
+    get_fault_profile,
 )

@@ -1,6 +1,16 @@
 """The fleet runtime: cohort groups run batched (vmap over the client
-axis) or one client at a time, on the port's fleet workloads, and the
-named heterogeneity scenarios that drive the sync and fleet runtimes."""
+axis) or one client at a time, on the port's fleet workloads; the named
+heterogeneity scenarios that drive the sync, async and fleet runtimes;
+and the fault axis."""
+from repro_torch.fed.fleet.faults import (  # noqa: F401
+    FAULT_PROFILES,
+    FaultProfile,
+    FaultTrace,
+    corrupt_stacked,
+    corrupt_update,
+    dirichlet_label_skew,
+    get_fault_profile,
+)
 from repro_torch.fed.fleet.batched import (  # noqa: F401
     CohortGroup,
     FleetConfig,

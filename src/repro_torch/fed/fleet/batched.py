@@ -32,10 +32,8 @@ buffers; PyTorch runs eagerly and has no counterpart of either, so
 ``dispatch_count`` counts one dispatch per group (one per step on the
 loop path) as the reference does, and its program-cache counters have no
 counterpart here.  Not ported yet, each raising ``NotImplementedError``:
-robust ``aggregator`` values and every ``faults`` profile but
-``"none"`` (ROADMAP item 12),
-``checkpoint_dir`` / ``resume`` (item 13) and ``engine="sharded"``
-(item 15).
+``checkpoint_dir`` / ``resume`` (ROADMAP item 13) and
+``engine="sharded"`` (item 15).
 """
 from __future__ import annotations
 
@@ -50,7 +48,9 @@ from torch.func import grad_and_value, vmap
 from repro_torch.core.coreset import build_coreset_batched
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fed.cost import resolve_cost
-from repro_torch.fed.faults import check_no_faults
+from repro_torch.fed.aggregators import ROBUST_METHODS, robust_combine
+from repro_torch.fed.fleet.faults import (FaultTrace, corrupt_stacked,
+                                          make_fault_trace)
 from repro_torch.fed.fleet.workloads import client_num_samples
 from repro_torch.fed.server import RoundRecord, make_eval_fn
 from repro_torch.fed.simulator import (CapabilityTrace, ClientSpec,
@@ -83,8 +83,8 @@ class FleetConfig:
     # per-sample step cost (repro_torch.fed.cost.WorkloadCostModel or
     # scalar; None = legacy samples-cost-1.0)
     cost: Any = None
-    # server combine rule; only "weighted_mean" is ported (robust rules:
-    # ROADMAP item 12)
+    # server combine rule: "weighted_mean" or a robust rule of
+    # repro_torch.fed.aggregators.ROBUST_METHODS
     aggregator: str = "weighted_mean"
 
 
@@ -110,7 +110,12 @@ class CohortGroup:
 
 @dataclasses.dataclass
 class FleetRoundStats:
-    """Per-client outcome of one fleet round, in cohort order."""
+    """Per-client outcome of one fleet round, in cohort order.
+
+    Dropped clients stay in the stats (their dispatch happened; only the
+    update was lost), so trace accounting and scheduler observations stay
+    aligned per (client, dispatch) under fault injection; the ``dropped``
+    mask is what kept them out of the aggregate."""
     cids: np.ndarray              # (N,)
     m: np.ndarray                 # (N,)
     budgets: np.ndarray           # (N,) effective budget (m if full-set)
@@ -118,6 +123,8 @@ class FleetRoundStats:
     work: np.ndarray              # (N,) work units (samples visited)
     losses: np.ndarray            # (N,) final local train loss
     medoids: Dict[int, np.ndarray]  # cid -> (k,) selected sample indices
+    dropped: np.ndarray           # (N,) bool — update lost mid-round
+    corrupted: np.ndarray         # (N,) bool — Byzantine update aggregated
 
 
 def _next_pow2(n: int) -> int:
@@ -417,30 +424,66 @@ def _cat(parts: List[np.ndarray], dtype) -> np.ndarray:
 def run_fleet_round(engine: FleetEngine, params: Params,
                     clients_data: Sequence[ClientData],
                     cids: Sequence[int], budgets: Dict[int, int],
-                    round_seed: int = 0, mode: str = "batched"
+                    round_seed: int = 0, mode: str = "batched",
+                    aggregator: str = "weighted_mean",
+                    faults: Optional[FaultTrace] = None,
+                    dispatch_ordinals: Optional[Dict[int, int]] = None
                     ) -> Tuple[Params, FleetRoundStats]:
     """Execute one cohort round; returns (aggregated params, stats).
 
     ``mode`` is ``"batched"`` (vmapped cohort groups) or ``"loop"``
     (per-client reference).  An empty cohort yields the round-start
-    params and zero-length stats."""
+    params and zero-length stats.
+
+    ``aggregator`` is the server combine rule (``"weighted_mean"`` or a
+    robust rule, which combines the engines' per-client parameter
+    stacks).  ``faults`` injects mid-round dropout (the update is
+    computed, then its weight is zeroed and its lane left out) and
+    Byzantine corruption of the stack lanes, honest lanes bitwise
+    untouched; ``dispatch_ordinals`` maps cid → that client's dispatch
+    ordinal for the per-(client, dispatch) fault draws (default 0;
+    ``run_fleet`` passes the dispatch cursors)."""
     if mode not in ("batched", "loop"):
         raise ValueError(f"unknown fleet execution mode {mode!r}")
+    if aggregator != "weighted_mean" and aggregator not in ROBUST_METHODS:
+        raise ValueError(f"unknown fleet aggregator {aggregator!r} "
+                         f"(expected weighted_mean or one of "
+                         f"{ROBUST_METHODS})")
     cfg = engine.cfg
     obs = get_recorder()
     with obs.span("cohort_build", n_clients=len(cids)):
         groups = make_cohort_groups(clients_data, cids, budgets, cfg,
                                     round_seed)
-    partials = []
+    has_dropout = faults is not None and faults.profile.has_dropout
+    has_corruption = faults is not None and faults.profile.has_corruption
+    # the weighted mean of honest lanes never needs the stacks kept;
+    # robust rules and corruption do
+    needs_stack = aggregator != "weighted_mean" or has_corruption
+    layouts = getattr(engine.model, "reference_layouts", None)
+    ordinals = dispatch_ordinals or {}
+    partials, stacks = [], []
     all_cids, all_m, all_b, all_core, all_work, all_loss = \
         [], [], [], [], [], []
-    all_meds = []
+    all_meds, all_drop, all_corrupt = [], [], []
     for g in groups:
         w = (g.m.astype(np.float64) if cfg.weight_by_samples
              else np.ones(g.n_clients))
+        ords = np.array([ordinals.get(int(c), 0) for c in g.cids], np.int64)
+        drop = (np.array([faults.dropped(int(c), int(o))
+                          for c, o in zip(g.cids, ords)], bool)
+                if has_dropout else np.zeros(g.n_clients, bool))
+        w_eff = np.where(drop, 0.0, w)
         stack, losses, meds = engine.run_group(params, g,
                                                batched=(mode == "batched"))
-        partials.append((stack, w))
+        corrupt = np.zeros(g.n_clients, bool)
+        if needs_stack:
+            if has_corruption:
+                stack, _ = corrupt_stacked(stack, params, g.cids, ords,
+                                           faults, layouts)
+                corrupt = faults.byzantine[np.asarray(g.cids, np.int64)]
+            stacks.append((stack, w_eff, drop))
+        else:
+            partials.append((stack, w_eff))
         all_cids.append(g.cids)
         all_m.append(g.m)
         all_b.append(g.m if g.k == 0 else np.full(g.n_clients, g.k))
@@ -450,13 +493,18 @@ def run_fleet_round(engine: FleetEngine, params: Params,
                         * np.ones(g.n_clients, np.int64))
         all_loss.append(losses)
         all_meds.append(meds)
-    with obs.span("aggregate", n_groups=len(groups),
-                  aggregator=cfg.aggregator):
+        all_drop.append(drop)
+        all_corrupt.append(corrupt & ~drop)   # a lost update corrupts nothing
+    with obs.span("aggregate", n_groups=len(groups), aggregator=aggregator):
         if obs.enabled:             # bytes entering the reduction
             obs.metrics.counter("aggregate.bytes").inc(sum(
                 leaf.numel() * leaf.element_size()
-                for stack, _ in partials for leaf in stack.values()))
-        new_params = _aggregate_groups(partials, fallback=params)
+                for entry in (stacks if needs_stack else partials)
+                for leaf in entry[0].values()))
+        if needs_stack:
+            new_params = _robust_groups(stacks, aggregator, params, layouts)
+        else:
+            new_params = _aggregate_groups(partials, fallback=params)
     medoids: Dict[int, np.ndarray] = {}
     with obs.span("gather", n_groups=len(groups)):
         for g, meds in zip(groups, all_meds):
@@ -468,8 +516,33 @@ def run_fleet_round(engine: FleetEngine, params: Params,
         budgets=_cat(all_b, np.int64),
         used_coreset=_cat(all_core, bool),
         work=_cat(all_work, np.float64),
-        losses=_cat(all_loss, np.float64), medoids=medoids)
+        losses=_cat(all_loss, np.float64), medoids=medoids,
+        dropped=_cat(all_drop, bool), corrupted=_cat(all_corrupt, bool))
     return new_params, stats
+
+
+def _robust_groups(stacks: List[Tuple[Params, np.ndarray, np.ndarray]],
+                   aggregator: str, params: Params, layouts) -> Params:
+    """``robust_combine`` over the surviving lanes of every group's stack,
+    the groups concatenated in order; the round-start ``params`` when no
+    lane survived."""
+    trees, wlist = [], []
+    for stack, w_eff, drop in stacks:
+        keep = np.nonzero(~drop)[0]
+        if keep.size == 0:
+            continue
+        if keep.size < drop.size:
+            ix = torch.as_tensor(keep,
+                                 device=next(iter(stack.values())).device)
+            stack = {k: x[ix] for k, x in stack.items()}
+        trees.append(stack)
+        wlist.append(np.asarray(w_eff, np.float64)[keep])
+    if not trees:
+        return params
+    stacked = (trees[0] if len(trees) == 1 else
+               {k: torch.cat([t[k] for t in trees]) for k in trees[0]})
+    return robust_combine(stacked, aggregator, weights=np.concatenate(wlist),
+                          base=params, layouts=layouts)
 
 
 def run_fleet(model, clients_data: Sequence[ClientData],
@@ -499,10 +572,16 @@ def run_fleet(model, clients_data: Sequence[ClientData],
     defaults to ``model.init`` from a ``torch.Generator`` seeded with
     ``cfg.seed``.
 
-    ``faults`` None and ``"none"`` run without faults.  Not ported yet,
-    each raising ``NotImplementedError``: ``engine="sharded"`` (ROADMAP
-    item 15), any other ``faults`` profile and robust
-    ``cfg.aggregator`` values (item 12), ``checkpoint_dir``,
+    ``faults`` (a ``repro_torch.fed.fleet.faults`` profile name,
+    ``FaultProfile`` or None) injects dropout, churn and Byzantine
+    corruption as seeded axes; ``cfg.aggregator`` picks the (robust)
+    combine rule.  Dropped clients stay in the round's trace accounting
+    (their dispatch happened, only the update was lost), so fault
+    injection never shifts another client's per-(client, dispatch)
+    draws.
+
+    Not ported yet, each raising ``NotImplementedError``:
+    ``engine="sharded"`` (ROADMAP item 15), ``checkpoint_dir``,
     ``checkpoint_every`` and ``resume`` (item 13).
     """
     if engine == "sharded":
@@ -511,11 +590,6 @@ def run_fleet(model, clients_data: Sequence[ClientData],
     if engine not in ("batched", "loop"):
         raise ValueError(f"unknown fleet engine {engine!r} "
                          f"(expected batched | loop)")
-    if cfg.aggregator != "weighted_mean":
-        raise NotImplementedError(
-            f"fleet aggregator {cfg.aggregator!r} is not ported yet: robust "
-            "aggregation is ROADMAP item 12 (only 'weighted_mean')")
-    check_no_faults(faults)
     if checkpoint_dir is not None or checkpoint_every or resume:
         raise NotImplementedError(
             "fleet checkpoint / resume is not ported yet: ROADMAP item 13")
@@ -536,11 +610,12 @@ def run_fleet(model, clients_data: Sequence[ClientData],
     # per-client dispatch cursors: the CapabilityTrace is defined per
     # (client, dispatch), as in the sync server
     tracei = DispatchTraceIndexer(len(specs), cap_trace)
+    ftrace, fault_name = make_fault_trace(faults, len(specs), cfg.seed)
     obs = active_recorder(verbose)
     obs.run_meta(runtime="fleet", engine=engine, requested_engine=engine,
                  n_clients=len(specs), rounds=rounds,
                  deadline=float(deadline), seed=cfg.seed,
-                 aggregator=cfg.aggregator, faults="none", n_devices=1,
+                 aggregator=cfg.aggregator, faults=fault_name, n_devices=1,
                  device=str(dev))
 
     history: List[RoundRecord] = []
@@ -551,13 +626,40 @@ def run_fleet(model, clients_data: Sequence[ClientData],
         with obs.span("cohort_select", round=r):
             if scheduler is not None:
                 cohort = [int(c) for c in scheduler.select()]
+            else:
+                cohort = list(range(len(specs)))
+            if ftrace is not None and ftrace.profile.has_churn:
+                mask, joins, leaves = ftrace.churn_step(r)
+                cohort = [cid for cid in cohort if mask[cid]]
+                if obs.enabled:
+                    obs.metrics.counter("faults.churn_joins").inc(joins)
+                    obs.metrics.counter("faults.churn_leaves").inc(leaves)
+                    obs.metrics.gauge("faults.n_present").set(
+                        int(mask.sum()))
+                    obs.metrics.gauge("faults.participation_frac").set(
+                        len(cohort) / max(len(specs), 1))
+            if scheduler is not None:
                 budgets = {cid: scheduler.budget(cid, deadline, cfg.epochs)
                            for cid in cohort}
             else:
-                cohort = list(range(len(specs)))
                 budgets = nominal_budgets(specs, deadline, cfg.epochs, cost)
+        # fault draws key on each client's dispatch ordinal: the cursors
+        # before the trace accounting below advances them
+        ordinals = {int(c): int(tracei.counts[c]) for c in cohort}
         params, stats = run_fleet_round(eng, params, clients_data, cohort,
-                                        budgets, round_seed=r, mode=engine)
+                                        budgets, round_seed=r, mode=engine,
+                                        aggregator=cfg.aggregator,
+                                        faults=ftrace,
+                                        dispatch_ordinals=ordinals)
+        n_fault_dropped = int(stats.dropped.sum())
+        n_corrupted = int(stats.corrupted.sum())
+        if obs.enabled and ftrace is not None:
+            if n_fault_dropped:
+                obs.metrics.counter("faults.dropped_updates").inc(
+                    n_fault_dropped)
+            if n_corrupted:
+                obs.metrics.counter("faults.corrupted_updates").inc(
+                    n_corrupted)
         durations = []
         with obs.span("trace_account", round=r):
             for cid, work in zip(stats.cids, stats.work):
@@ -585,7 +687,7 @@ def run_fleet(model, clients_data: Sequence[ClientData],
             round=r,
             sim_round_time=float(np.max(durations)) if durations else 0.0,
             client_times=[float(d) for d in durations],
-            n_participants=len(cohort), n_dropped=0,
+            n_participants=len(cohort), n_dropped=n_fault_dropped,
             n_coreset=int(stats.used_coreset.sum()), train_loss=train_loss,
             n_violations=n_violations)
         if eval_fn and (r % eval_every == 0 or r == rounds - 1):
@@ -597,7 +699,8 @@ def run_fleet(model, clients_data: Sequence[ClientData],
         rec.wall_time = time.perf_counter() - t0
         obs.event("round", runtime="fleet", engine=engine,
                   label=f"fleet/{engine}", round=r,
-                  n_participants=len(cohort), n_dropped=0, n_corrupted=0,
+                  n_participants=len(cohort), n_dropped=n_fault_dropped,
+                  n_corrupted=n_corrupted,
                   n_coreset=rec.n_coreset, n_violations=n_violations,
                   sim_round_time=float(rec.sim_round_time),
                   wall_time_s=rec.wall_time,
@@ -617,6 +720,6 @@ def run_fleet(model, clients_data: Sequence[ClientData],
         "engine": engine,
         "cohort_sizes": cohort_sizes,
         "aggregator": cfg.aggregator,
-        "faults": "none",
+        "faults": fault_name,
         "strategy": "fedcore_fleet",
     }

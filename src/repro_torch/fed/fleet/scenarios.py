@@ -21,12 +21,12 @@ comparable across scenarios):
   * ``device_classes``   — a 3-class hardware mixture (low-end 0.3×,
                            mid 1×, flagship 3×) with per-device spread.
 
-Ported runtimes: ``"sync"`` (``run_federated`` with ``FedCore``) and
-``"fleet"`` (``run_fleet``, engines ``batched`` and ``loop``).  Not
-ported yet, each raising ``NotImplementedError``: the ``"async"`` and
-``"async_fleet"`` runtimes (ROADMAP item 11), every ``faults`` profile
-but ``"none"`` and the robust aggregators (item 12), and
-``fleet_engine="sharded"`` (item 15, raised by ``run_fleet``).
+Ported runtimes: ``"sync"`` (``run_federated`` with ``FedCore``),
+``"async"`` (``run_federated_async`` with ``FedCore``) and ``"fleet"``
+(``run_fleet``, engines ``batched`` and ``loop``), each with the fault
+axis and the robust aggregators.  Not ported yet, each raising
+``NotImplementedError``: the ``"async_fleet"`` runtime (ROADMAP item
+11b) and ``fleet_engine="sharded"`` (item 15, raised by ``run_fleet``).
 """
 from __future__ import annotations
 
@@ -37,7 +37,6 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.device import DeviceLike
-from repro_torch.fed.faults import check_no_faults
 from repro_torch.fed.fleet.workloads import (FleetWorkload, client_sizes,
                                              get_workload)
 from repro_torch.fed.simulator import ClientSpec, TraceConfig
@@ -128,6 +127,7 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
                  rounds: int = 5, clients_per_round: int = 8,
                  epochs: int = 3, batch_size: int = 8, lr: float = 0.05,
                  straggler_pct: float = 30.0,
+                 max_updates: Optional[int] = None, concurrency: int = 8,
                  scheduler=None, aggregator=None, faults=None,
                  fleet_engine: str = "batched",
                  use_kernel: Optional[bool] = None,
@@ -137,9 +137,13 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
     """Drive one named scenario through one runtime.
 
     ``runtime`` is ``"sync"`` (the synchronous round server,
-    ``run_federated`` with the ``FedCore`` strategy) or ``"fleet"``
+    ``run_federated`` with the ``FedCore`` strategy), ``"async"`` (the
+    event-driven runtime, ``run_federated_async`` with ``FedCore``: it
+    applies ``max_updates`` server updates, default ``rounds ×
+    clients_per_round``, with at most ``concurrency`` clients in flight
+    and a record every ``clients_per_round`` updates) or ``"fleet"``
     (``run_fleet``; ``fleet_engine`` is ``"batched"`` or ``"loop"``).
-    Both consume the same specs and capability trace from the registry,
+    Each consumes the same specs and capability trace from the registry,
     so a scenario means the same fleet in each.  ``use_kernel`` is the
     tri-state kernel switch of the coreset selection, threaded into the
     runtime's config.  ``workload`` is a registry name or a
@@ -149,33 +153,38 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
     ``cost`` prices one sample-visit (see ``repro_torch.fed.cost``).
     ``device=None`` means the CUDA card.  The result dict gains
     ``scenario``, ``runtime``, ``faults`` and (with a workload)
-    ``workload`` keys.  The JAX package's ``max_updates`` and
-    ``concurrency`` belong to its async runtimes and come with them.
+    ``workload`` keys.
 
-    Not ported yet, each raising ``NotImplementedError``: the ``"async"``
-    and ``"async_fleet"`` runtimes (ROADMAP item 11), ``faults`` other
-    than None and ``"none"`` and aggregators other than
-    ``"weighted_mean"`` (item 12),
+    ``faults`` is the fault axis (a ``FaultProfile``, a registry name
+    like ``"byzantine_signflip"``, or None): its label-skew component
+    repartitions ``clients_data`` (sizes kept, so specs and capability
+    draws are unchanged) before the run, and the runtime axes (dropout,
+    churn, corruption) go to the runtime.  ``aggregator`` takes a robust
+    rule's name (``repro_torch.fed.aggregators.ROBUST_METHODS``) on every
+    runtime; the async runtime also takes the streaming aggregators'
+    names (``"fedasync"``, ``"fedbuff"``, ``"delayed_grad"``,
+    ``"sync_mean"``) or an ``Aggregator``.
+
+    Not ported yet, each raising ``NotImplementedError``: the
+    ``"async_fleet"`` runtime (ROADMAP item 11b) and
     ``fleet_engine="sharded"`` (item 15).
     """
     from repro_torch.core.coreset import FedCoreConfig
+    from repro_torch.fed.aggregators import (AGGREGATORS, ROBUST_METHODS,
+                                             RobustAggregate,
+                                             SyncWeightedMean)
+    from repro_torch.fed.events import AsyncFLConfig, run_federated_async
     from repro_torch.fed.fleet.batched import FleetConfig, run_fleet
+    from repro_torch.fed.fleet.faults import (dirichlet_label_skew,
+                                              get_fault_profile)
     from repro_torch.fed.server import FLConfig, run_federated
     from repro_torch.fed.strategies import FedCore, LocalTrainer
 
-    if runtime in ("async", "async_fleet"):
+    if runtime == "async_fleet":
         raise NotImplementedError(
-            f"the {runtime!r} runtime is not ported yet: ROADMAP item 11")
-    if runtime not in ("sync", "fleet"):
+            "the 'async_fleet' runtime is not ported yet: ROADMAP item 11b")
+    if runtime not in ("sync", "async", "fleet"):
         raise ValueError(f"unknown runtime {runtime!r}")
-    check_no_faults(faults)
-    # the sync and fleet runtimes take an aggregator by name; an
-    # aggregator object is for the async runtimes, as in the JAX package
-    agg = aggregator if isinstance(aggregator, str) else "weighted_mean"
-    if agg != "weighted_mean":
-        raise NotImplementedError(
-            f"aggregator {agg!r} is not ported yet: robust aggregation is "
-            "ROADMAP item 12 (only 'weighted_mean')")
 
     wl: Optional[FleetWorkload] = None
     if workload is not None:
@@ -188,35 +197,75 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
     if model is None or clients_data is None:
         raise ValueError("run_scenario needs model + clients_data, or a "
                          "workload to build them from")
+    profile = get_fault_profile(faults)
+    fault_name = profile.name if profile is not None else "none"
+    if profile is not None and profile.label_skew_alpha is not None:
+        # label skew repartitions the data but keeps per-client sizes, so
+        # specs, budgets and capability draws are untouched
+        clients_data = dirichlet_label_skew(
+            clients_data, profile.label_skew_alpha, seed=seed)
     specs, trace = build_scenario(name, client_sizes(clients_data), seed)
+    core_cfg = FedCoreConfig(use_kernel=use_kernel)
     # stamped before the runtime's own run record, so a JSONL log opens
     # with the scenario context
     get_recorder().event("scenario", scenario=name, runtime=runtime,
                          workload=(wl.name if wl is not None else None),
-                         faults="none", n_clients=len(specs), seed=seed)
+                         faults=fault_name, n_clients=len(specs), seed=seed)
 
+    def streaming(round_size: int):
+        """``aggregator`` as a streaming Aggregator for the async runtime
+        (a robust name buffers one round's worth of updates before
+        combining, as the sync server's round does)."""
+        if aggregator is None or not isinstance(aggregator, str):
+            return aggregator
+        if aggregator in ROBUST_METHODS:
+            return RobustAggregate(
+                aggregator, round_size=round_size,
+                layouts=getattr(model, "reference_layouts", None))
+        if aggregator == "sync_mean":
+            return SyncWeightedMean(round_size=round_size)
+        return AGGREGATORS[aggregator]()
+
+    # the sync and fleet runtimes take an aggregator by name; an
+    # aggregator object is for the async runtime
+    by_name = aggregator if isinstance(aggregator, str) else "weighted_mean"
     if runtime == "sync":
         cfg = FLConfig(rounds=rounds, clients_per_round=clients_per_round,
                        epochs=epochs, batch_size=batch_size, lr=lr,
                        straggler_pct=straggler_pct, seed=seed, trace=trace,
                        cost=cost)
         strat = FedCore(LocalTrainer(model, lr, batch_size, cost=cost,
-                                     device=device),
-                        FedCoreConfig(use_kernel=use_kernel))
+                                     device=device), core_cfg)
         out = run_federated(model, clients_data, specs, strat, cfg,
                             test_data=test_data, scheduler=scheduler,
-                            aggregator=agg, verbose=verbose, device=device)
+                            aggregator=by_name, faults=profile,
+                            verbose=verbose, device=device)
+    elif runtime == "async":
+        cfg = AsyncFLConfig(
+            max_updates=max_updates or rounds * clients_per_round,
+            concurrency=concurrency, epochs=epochs, batch_size=batch_size,
+            lr=lr, straggler_pct=straggler_pct,
+            record_every=clients_per_round, seed=seed, trace=trace,
+            cost=cost)
+        strat = FedCore(LocalTrainer(model, lr, batch_size, cost=cost,
+                                     device=device), core_cfg)
+        out = run_federated_async(model, clients_data, specs, strat, cfg,
+                                  aggregator=streaming(clients_per_round),
+                                  test_data=test_data, scheduler=scheduler,
+                                  faults=profile, verbose=verbose,
+                                  device=device)
     else:
         cfg = FleetConfig(epochs=epochs, batch_size=batch_size, lr=lr,
                           seed=seed, use_kernel=use_kernel, cost=cost,
-                          aggregator=agg)
+                          aggregator=by_name)
         out = run_fleet(model, clients_data, specs, cfg, rounds=rounds,
                         scheduler=scheduler, trace=trace,
                         straggler_pct=straggler_pct, test_data=test_data,
-                        engine=fleet_engine, verbose=verbose, device=device)
+                        engine=fleet_engine, faults=profile,
+                        verbose=verbose, device=device)
     out["scenario"] = name
     out["runtime"] = runtime
-    out.setdefault("faults", "none")
+    out.setdefault("faults", fault_name)
     if wl is not None:
         out["workload"] = wl.name
     return out

@@ -108,6 +108,10 @@ class FleetWorkload:
     def feature_space(self) -> str:
         return self.model.feature_space
 
+    @property
+    def reference_layouts(self) -> Dict[str, Tuple[int, ...]]:
+        return getattr(self.model, "reference_layouts", {})
+
     # -- schema ----------------------------------------------------------
     def validate_clients(self, clients_data: Sequence[Any]) -> None:
         """Check every client against the declared schema: exact

@@ -17,8 +17,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.fed.aggregators import SyncWeightedMean
-from repro_torch.fed.faults import check_no_faults
+from repro_torch.fed.aggregators import (ROBUST_METHODS, SyncWeightedMean,
+                                         robust_combine, stack_params)
 from repro_torch.fed.simulator import (CapabilityTrace, ClientSpec,
                                        DispatchTraceIndexer, TraceConfig,
                                        straggler_deadline)
@@ -87,15 +87,22 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
     ``observe`` / ``record_round`` protocol of
     ``repro_torch.fed.fleet.scheduler.AdaptiveParticipation``: it replaces
     ∝ mⁱ sampling with its own cohort and is fed realized durations.
-    ``faults`` None and ``"none"`` run without faults; robust
-    ``aggregator`` values and every other fault profile are not ported
-    yet (ROADMAP item 12).
+
+    ``aggregator`` selects the round merge: ``"weighted_mean"`` (Alg. 1)
+    or a robust rule of ``repro_torch.fed.aggregators.ROBUST_METHODS``.
+    ``faults`` (a ``repro_torch.fed.fleet.faults`` profile or name)
+    injects seeded dropout, churn and Byzantine corruption without
+    changing a surviving client's capability draws: churn filters the
+    cohort after the sampling draw, a dropped update's client still
+    holds the round until it finishes, and corruption is taken against
+    the round-start params.
     """
-    if aggregator != "weighted_mean":
-        raise NotImplementedError(
-            f"aggregator {aggregator!r} is not ported yet (only "
-            "'weighted_mean')")
-    check_no_faults(faults)
+    # function-level import: repro_torch.fed.fleet imports this module
+    from repro_torch.fed.fleet.faults import corrupt_update, make_fault_trace
+    if aggregator != "weighted_mean" and aggregator not in ROBUST_METHODS:
+        raise ValueError(
+            f"unknown sync aggregator {aggregator!r} (expected "
+            f"'weighted_mean' or one of {sorted(ROBUST_METHODS)})")
     dev = resolve_device(device)
     if strategy.trainer.device != dev:
         raise ValueError(f"run_federated on {dev} but the strategy's "
@@ -117,9 +124,11 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
     mean_agg = SyncWeightedMean(cfg.weight_by_samples)
     trace = CapabilityTrace(cfg.trace) if cfg.trace is not None else None
     tracei = DispatchTraceIndexer(len(specs), trace)
+    ftrace, fault_name = make_fault_trace(faults, len(specs), cfg.seed)
+    layouts = getattr(model, "reference_layouts", None)
     obs = active_recorder(verbose)
     obs.run_meta(runtime="sync", engine="sync", strategy=strategy.name,
-                 aggregator=aggregator, faults="none",
+                 aggregator=aggregator, faults=fault_name,
                  n_clients=len(specs), rounds=cfg.rounds,
                  deadline=float(deadline), seed=cfg.seed)
 
@@ -131,10 +140,20 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
                 selected = [int(c) for c in scheduler.select()]
             else:
                 selected = sample_clients(specs, cfg.clients_per_round, rng)
+            if ftrace is not None and ftrace.profile.has_churn:
+                # churned-out clients miss the round; the sampling draw
+                # above already happened, so the survivors' RNG streams
+                # match the churn-free run
+                mask, joins, leaves = ftrace.churn_step(r)
+                selected = [c for c in selected if mask[c]]
+                obs.metrics.counter("faults.churn_joins").inc(joins)
+                obs.metrics.counter("faults.churn_leaves").inc(leaves)
+                obs.metrics.gauge("faults.n_present").set(int(mask.sum()))
         results: List[ClientResult] = []
         times: List[float] = []
         drop_times: List[float] = []
         dropped = 0
+        n_corrupted = 0
         client_rows = []    # (cid, sim duration, dropped, violated)
         with obs.span("local_update", round=r):
             for cid in selected:
@@ -161,6 +180,24 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
                     if scheduler is not None:
                         scheduler.observe(cid, res.sim_time * spec.c,
                                           duration)
+                    if ftrace is not None and ftrace.dropped(cid, k):
+                        # fault dropout: the client trained (its trace
+                        # cursor advanced, the round waits for it) but
+                        # the update never reaches the server
+                        dropped += 1
+                        obs.metrics.counter("faults.dropped_updates").inc()
+                        client_rows.append((cid, float(duration), True,
+                                            False))
+                        drop_times.append(float(duration))
+                        continue
+                    if ftrace is not None and ftrace.profile.has_corruption:
+                        cp, was_c = corrupt_update(res.params, params, cid,
+                                                   k, ftrace, layouts)
+                        if was_c:
+                            n_corrupted += 1
+                            obs.metrics.counter(
+                                "faults.corrupted_updates").inc()
+                            res = dataclasses.replace(res, params=cp)
                     results.append(res)
                     times.append(duration)
                     obs.metrics.histogram("client_busy_s").observe(duration)
@@ -170,11 +207,18 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
                                         bool(res.deadline_violated)))
 
         with obs.span("aggregate", round=r):
-            if results:
+            if results and aggregator == "weighted_mean":
                 params = mean_agg.aggregate(
                     [r_.params for r_ in results],
                     [r_.n_samples for r_ in results],
                     fallback=params)
+            elif results:
+                weights = ([r_.n_samples for r_ in results]
+                           if cfg.weight_by_samples else None)
+                params = robust_combine(
+                    stack_params([r_.params for r_ in results]),
+                    aggregator, weights=weights, base=params,
+                    layouts=layouts)
         round_time = max(times + drop_times + [0.0])
         train_loss = float(np.mean([r_.final_loss for r_ in results])
                            ) if results else float("nan")
@@ -194,7 +238,7 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
         obs.event("round", runtime="sync", engine="sync",
                   label=strategy.name, round=r,
                   n_participants=rec.n_participants, n_dropped=dropped,
-                  n_corrupted=0,
+                  n_corrupted=n_corrupted,
                   n_coreset=rec.n_coreset, n_violations=rec.n_violations,
                   sim_round_time=float(round_time),
                   wall_time_s=time.perf_counter() - t0,
@@ -213,7 +257,7 @@ def run_federated(model, clients_data: List[Dict[str, np.ndarray]],
         "deadline": deadline,
         "strategy": strategy.name,
         "aggregator": aggregator,
-        "faults": "none",
+        "faults": fault_name,
     }
 
 

@@ -86,8 +86,12 @@ class FLModule(nn.Module):
     """The FL interface over ``forward`` (= logits) and explicit params.
 
     The module's own parameters only fix names and shapes; every call
-    runs on the params it is given."""
+    runs on the params it is given.  ``reference_layouts`` maps a leaf
+    stored in another layout than the JAX package's to the permutation
+    of its axes that gives the JAX layout (the fault axis draws its
+    per-leaf noise in that layout)."""
     feature_space = "last_layer_grad"
+    reference_layouts: Dict[str, Tuple[int, ...]] = {}
 
     def _param(self, *shape) -> nn.Parameter:
         return nn.Parameter(torch.zeros(shape), requires_grad=False)
@@ -149,6 +153,8 @@ class LogisticRegression(FLModule):
 
 class SmallCNN(FLModule):
     """Three-layer CNN: 2 conv (5x5) + 1 dense head, as in the paper."""
+    reference_layouts = {"conv1": (2, 3, 1, 0),      # OIHW -> HWIO
+                         "conv2": (2, 3, 1, 0)}
 
     def __init__(self, image_size: int = 28,
                  channels: Tuple[int, int] = (16, 32), n_classes: int = 10):

@@ -223,11 +223,43 @@ def test_faults_none_matches_reference():
         np.testing.assert_allclose(tout["params"][k].numpy(), v.numpy(),
                                    atol=1e-5, err_msg=k)
         assert torch.equal(tout["params"][k], outs[None]["params"][k])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_federated(tm, train, [ClientSpec(i, M, c)
-                                  for i, c in enumerate(CAPS)],
-                      FedAvg(LocalTrainer(tm, 0.05, 8, device="cpu")),
-                      FLConfig(**CFG), faults="dropout", device="cpu")
+
+
+@pytest.mark.parametrize("faults,aggregator", [("dropout", "weighted_mean"),
+                                               ("byzantine_boost",
+                                                "norm_clip")])
+def test_faults_and_robust_aggregator_match_reference(faults, aggregator):
+    """A fault profile and a robust aggregator on the sync round: the
+    same dropped counts, timing and parameters as the reference's."""
+    jm, tm = _models("logreg")
+    train = _data("logreg")
+    jp = _init("logreg", jm)
+    jout = j_run_federated(
+        jm, train, [JClientSpec(i, M, c) for i, c in enumerate(CAPS)],
+        jstrat.FedAvg(jstrat.LocalTrainer(jm, CFG["lr"], CFG["batch_size"])),
+        JFLConfig(**CFG), init_params=jp, faults=faults,
+        aggregator=aggregator)
+    tout = run_federated(
+        tm, train, [ClientSpec(i, M, c) for i, c in enumerate(CAPS)],
+        FedAvg(LocalTrainer(tm, CFG["lr"], CFG["batch_size"],
+                            device="cpu")),
+        FLConfig(**CFG), init_params=params_from_jax("logreg", jp,
+                                                     device="cpu"),
+        faults=faults, aggregator=aggregator, device="cpu")
+    assert (tout["faults"], tout["aggregator"]) == (faults, aggregator)
+    for a, b in zip(tout["history"], jout["history"]):
+        assert (a.sim_round_time, a.client_times, a.n_dropped,
+                a.n_participants) == \
+            (b.sim_round_time, b.client_times, b.n_dropped,
+             b.n_participants)
+    if faults == "dropout":
+        assert sum(h.n_dropped for h in tout["history"]) > 0
+    want = params_from_jax("logreg", jax.tree.map(np.asarray,
+                                                  jout["params"]),
+                           device="cpu")
+    for k, v in want.items():
+        np.testing.assert_allclose(tout["params"][k].numpy(), v.numpy(),
+                                   atol=1e-5, err_msg=k)
 
 
 def test_port_jsonl_passes_reference_schema(tmp_path):

@@ -22,8 +22,9 @@ distance-free kernels.
 
 Also here: the cohort grouping, the nominal budgets and the adaptive
 scheduler's select / budget sequences, which must equal the reference's
-exactly, the port's JSONL passing the reference's schema, and the
-arguments that are not ported yet raising ``NotImplementedError``.
+exactly, the port's JSONL passing the reference's schema, a fault
+profile and a robust aggregator against the reference, and the arguments
+that are not ported yet raising ``NotImplementedError``.
 """
 import numpy as np
 import pytest
@@ -276,10 +277,6 @@ def test_not_ported_arguments_raise():
 
     with pytest.raises(NotImplementedError, match="item 15"):
         run(engine="sharded")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run(faults="dropout")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run(cfg=FleetConfig(aggregator="median", **CFG))
     with pytest.raises(NotImplementedError, match="item 13"):
         run(checkpoint_dir="ckpt", checkpoint_every=1)
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -288,11 +285,48 @@ def test_not_ported_arguments_raise():
         run(resume=True)
     with pytest.raises(ValueError, match="unknown fleet engine"):
         run(engine="async")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        run_scenario("uniform", "async", workload="mlp", device="cpu")
+    with pytest.raises(ValueError, match="unknown fleet aggregator"):
+        run(cfg=FleetConfig(aggregator="mean", **CFG))
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        run_scenario("uniform", "async_fleet", workload="mlp", device="cpu")
     assert get_workload("translm").name == "translm"
     with pytest.raises(ValueError, match="unknown fleet workload"):
         get_workload("resnet")
+
+
+@pytest.mark.parametrize("faults,aggregator", [("dropout", "weighted_mean"),
+                                               (None, "median")])
+@pytest.mark.parametrize("engine", ["batched", "loop"])
+def test_faults_and_robust_aggregator_match_reference(engine, faults,
+                                                      aggregator):
+    """``faults="dropout"`` and ``aggregator="median"`` on the mlp fleet:
+    each client's dropped flag, the timing fields and the parameters as
+    the reference's loop engine gives them."""
+    jwl, train, test, specs, jp = _bundle("mlp")
+    cfg = dict(CFG, aggregator=aggregator)
+    jout = jb.run_fleet(jwl, train, specs, jb.FleetConfig(**cfg), ROUNDS,
+                        straggler_pct=STRAGGLER_PCT, test_data=test,
+                        init_params=jp, engine="loop", faults=faults)
+    out = run_fleet(get_workload("mlp"), train,
+                    [ClientSpec(s.cid, s.m, s.c) for s in specs],
+                    FleetConfig(**cfg), ROUNDS, straggler_pct=STRAGGLER_PCT,
+                    test_data=test,
+                    init_params=params_from_jax("mlp", jp, device="cpu"),
+                    engine=engine, faults=faults, device="cpu")
+    assert (out["faults"], out["aggregator"]) == \
+        (jout["faults"], jout["aggregator"])
+    for a, b in zip(out["history"], jout["history"]):
+        assert (a.sim_round_time, a.client_times, a.n_dropped,
+                a.n_coreset, a.n_participants) == \
+            (b.sim_round_time, b.client_times, b.n_dropped, b.n_coreset,
+             b.n_participants)
+    assert (sum(h.n_dropped for h in out["history"]) > 0) == \
+        (faults == "dropout")
+    want = params_from_jax("mlp", jax.tree.map(np.asarray, jout["params"]),
+                           device="cpu")
+    for k, v in want.items():
+        np.testing.assert_allclose(out["params"][k].numpy(), v.numpy(),
+                                   atol=1e-5, err_msg=k)
 
 
 def test_workload_schema_and_client_bytes_equal_reference():

@@ -63,6 +63,11 @@ def test_entry_points_without_device_need_cuda():
         model.init(torch.Generator().manual_seed(0))
     with pytest.raises(RuntimeError, match="CUDA"):
         make_eval_fn(model, {"x": None, "y": None}, 4)
+    from repro_torch.fed import (AsyncFLConfig, FedCore, LocalTrainer,
+                                 run_federated_async)
+    strategy = FedCore(LocalTrainer(model, 0.1, 4, device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_federated_async(model, [], [], strategy, AsyncFLConfig())
     from repro_torch.fed.fleet import FleetConfig, FleetEngine, run_fleet
     with pytest.raises(RuntimeError, match="CUDA"):
         FleetEngine(model, FleetConfig())

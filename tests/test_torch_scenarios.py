@@ -3,7 +3,9 @@
 ``build_scenario`` must give the JAX package's ``ClientSpec``s (the same
 capability bytes) and an equal ``TraceConfig`` for every scenario.
 ``run_scenario`` drives a scenario through the port's ``sync`` runtime
-(``run_federated`` with ``FedCore``) and ``fleet`` runtime (``run_fleet``)
+(``run_federated`` with ``FedCore``), ``async`` runtime
+(``run_federated_async`` with ``FedCore``) and ``fleet`` runtime
+(``run_fleet``)
 on the ``mlp`` workload here and the ``xlstm`` workload in
 ``test_torch_scenarios_xlstm.py``, at a small size (8 clients the
 workload builds itself, 2 rounds, E = 2), held against the JAX
@@ -11,7 +13,8 @@ workload builds itself, 2 rounds, E = 2), held against the JAX
 converted): the ``RoundRecord`` timing and participation fields exact,
 train loss and parameters within 1e-5 (the conformance matrix's
 ``PARAMS_ATOL`` for both workloads).  The JAX fleet runs its loop engine,
-the reference.  The runtimes and arguments not ported yet raise
+the reference; the async runtime's event log must equal the reference's
+byte for byte.  The runtime and arguments not ported yet raise
 ``NotImplementedError`` naming their ROADMAP items.
 
 Some scenarios' capabilities put a near-tied medoid choice in front of
@@ -103,6 +106,7 @@ def check_against_reference(scenario, runtime, workload, engine=None,
     assert sink.records[0]["data"]["workload"] == workload
     for key in ("scenario", "runtime", "workload", "faults"):
         assert out[key] == jout[key]
+    assert out.get("event_log") == jout.get("event_log")
     assert out["deadline"] == jout["deadline"]
     # the straggler (coreset) path ran
     assert sum(h.n_coreset for h in out["history"]) > 0
@@ -248,17 +252,27 @@ def test_not_ported_arguments_raise():
         return run_scenario("uniform", runtime, workload="mlp", n_clients=4,
                             rounds=1, device="cpu", **kwargs)
 
-    for runtime in ("async", "async_fleet"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            run(runtime)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run(faults="dropout")
-    for runtime in ("sync", "fleet"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            run(runtime, aggregator="median")
+    with pytest.raises(NotImplementedError, match="item 11b"):
+        run("async_fleet")
     with pytest.raises(NotImplementedError, match="item 15"):
         run(fleet_engine="sharded")
     with pytest.raises(ValueError, match="unknown runtime"):
         run("batched")
     with pytest.raises(ValueError, match="needs model"):
         run_scenario("uniform", "sync", device="cpu")
+    with pytest.raises(ValueError, match="unknown fault profile"):
+        run(faults="meteor")
+
+
+@pytest.mark.parametrize("runtime,engine,extra", [
+    ("async", None, {}),
+    ("async", None, {"aggregator": "delayed_grad", "max_updates": 10}),
+    ("sync", None, {"faults": "dropout"}),
+    ("sync", None, {"aggregator": "median"}),
+    ("fleet", "batched", {"aggregator": "median"})])
+def test_async_runtime_faults_and_robust_rules_match_reference(
+        runtime, engine, extra):
+    """The async runtime (the reference's default FedAsync, and delayed
+    gradients), a fault profile and a robust aggregator by name: the run
+    as the reference's, the async event log byte for byte."""
+    check_against_reference("uniform", runtime, "mlp", engine, **extra)
