@@ -142,9 +142,28 @@ phases run in order and any failure exits non-zero:
     bit-identical parameters); one round of each of ``median``,
     ``krum``, ``multi_krum`` and ``norm_clip`` under
     ``byzantine_boost``; and ``run_scenario("uniform", "sync",
-    faults="byzantine_noise", aggregator="median")`` for 2 rounds.
+    faults="byzantine_noise", aggregator="median")`` for 2 rounds;
+14. the async fleet engine on phase 6's workload, clients and specs:
+    (a) ``run_async_fleet(engine="batched")`` with the FedBuff merge, 3
+    flushes of 32 completions, 64 clients in flight, E = 5; the launch
+    counts are set to 0 just before and read just after, and the fleet
+    kernels (4, 2, 3, 5, 6) must each have launched, with a straggler
+    group at M >= 256; each flush's groups as (M, k, C), the flush
+    windows' walls, the makespan, the staleness and buffer-occupancy
+    histograms, group against client dispatches, the wall by span
+    (``cohort_build``, ``dispatch``, ``aggregate``, ``gather``,
+    ``dispatch_wave``, ``buffer_fill``), and the same run under
+    ``torch.profiler`` (the idle share against the main run's wall);
+    (b) its ``use_kernel=False`` twin: the event log byte for byte, the
+    medoids per (flush, client) and bit-identical parameters; (c)
+    ``engine="loop"`` against a batched run, one flush each: the event
+    logs and medoids equal, parameters within 2e-4; (d)
+    ``run_scenario("pareto", "async_fleet", faults="hostile",
+    aggregator="trimmed_mean", max_updates=2, clients_per_round=16)``:
+    the dropped and corrupted counts a replay of the ``FaultTrace`` over
+    its event log gives, and both trimmed-mean merges on the card.
 
-Phases 1-2 run alone.  Phases 3-7 and 12-13 (the sync and async runtimes
+Phases 1-2 run alone.  Phases 3-7 and 12-14 (the sync and async runtimes
 and the CNN fleet), 8-9 (the ``translm`` fleet) and 10-11 (the ``xlstm``
 fleet) share no state, and each group is host-bound (the card idles most of each round),
 so they run as three concurrent processes on the one card, each a
@@ -152,7 +171,7 @@ so they run as three concurrent processes on the one card, each a
 itself): a lane sets its own launch counts to 0 around its main path,
 writes its launch counts and phase seconds to ``build/chip_smoke/``, and
 its output is printed in phase order once every lane has ended.  Round
-walls, idle shares and step times of phases 3-13 are therefore taken
+walls, idle shares and step times of phases 3-14 are therefore taken
 with the other two lanes running.  A lane that fails stops the others;
 lanes still running ``LANE_DEADLINE_S`` seconds after the start are
 stopped and the script fails with what they printed so far.
@@ -176,7 +195,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 LANE_DIR = ROOT / "build" / "chip_smoke"
-# the lanes of phases 3-13, run concurrently (see the module docstring)
+# the lanes of phases 3-14, run concurrently (see the module docstring)
 LANES = ("sync_cnn", "translm", "xlstm")
 # lanes still running this long after the start are stopped: the whole
 # script must end within 1200 s
@@ -1782,6 +1801,276 @@ def phase_fleet_faults(wl, clients, specs, cfg, sync_clients):
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the async fleet engine on the CNN fleet
+# ---------------------------------------------------------------------------
+
+# phase 14's main run: 3 flushes of 32 completions, 64 clients in flight
+ASYNC_FLEET = dict(max_updates=3, buffer_k=32, concurrency=64, epochs=5,
+                   batch_size=8, lr=0.03, straggler_pct=30.0, seed=0)
+# the spans of a flush (and of the windows between flushes) whose wall
+# phase 14 prints
+ASYNC_FLEET_SPANS = ("cohort_build", "dispatch", "aggregate", "gather",
+                     "dispatch_wave", "buffer_fill")
+
+
+@contextlib.contextmanager
+def async_fleet_recording():
+    """Record, while open, each flush's cohort groups as (M, k, C), the
+    medoids of each group as (flush, {cid: indices}) in run order, and
+    the device of every stack ``robust_combine`` merges: a dict with
+    ``groups``, ``medoids`` and ``robust_devices``."""
+    import numpy as np
+
+    import repro_torch.fed.fleet.async_engine as async_engine
+    from repro_torch.fed.fleet import FleetEngine
+
+    rec = {"groups": {}, "medoids": [], "robust_devices": []}
+    current = [0]
+    make_groups = async_engine.make_cohort_groups
+    run_group = FleetEngine.run_group
+    combine = async_engine.robust_combine
+
+    def recording_groups(*args, round_seed=0, **kwargs):
+        groups = make_groups(*args, round_seed=round_seed, **kwargs)
+        current[0] = round_seed
+        rec["groups"].setdefault(round_seed, []).extend(
+            (g.valid.shape[1], g.k, g.n_clients) for g in groups)
+        return groups
+
+    def recording_run_group(self, params, group, batched=True):
+        p, losses, meds = run_group(self, params, group, batched)
+        if meds is not None:
+            rec["medoids"].append((current[0], {
+                int(c): np.asarray(m) for c, m in zip(group.cids, meds)}))
+        return p, losses, meds
+
+    def recording_combine(stacked, *args, **kwargs):
+        rec["robust_devices"].append(
+            str(next(iter(stacked.values())).device))
+        return combine(stacked, *args, **kwargs)
+
+    async_engine.make_cohort_groups = recording_groups
+    FleetEngine.run_group = recording_run_group
+    async_engine.robust_combine = recording_combine
+    try:
+        yield rec
+    finally:
+        async_engine.make_cohort_groups = make_groups
+        FleetEngine.run_group = run_group
+        async_engine.robust_combine = combine
+
+
+def run_async_fleet_recorded(wl, clients, specs, cfg, engine="batched",
+                             **kwargs):
+    """One ``run_async_fleet`` on the card with recording on; returns
+    (output, ``async_fleet_recording``'s record, span records, launch
+    counts, wall seconds)."""
+    import torch
+
+    from repro_torch.fed.fleet import run_async_fleet
+    from repro_torch.kernels import ops
+    from repro_torch.obs import InMemorySink, Recorder, use_recorder
+
+    sink = InMemorySink()
+    with async_fleet_recording() as rec:
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with use_recorder(Recorder([sink])):
+            out = run_async_fleet(wl, clients, specs, cfg, engine=engine,
+                                  **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    return out, rec, sink.records, launches, wall
+
+
+def log_async_fleet(out, rec, records, wall):
+    """Each flush's groups and wall, the makespan, the staleness and
+    occupancy histograms, the dispatch counts and the wall by span."""
+    t = out["telemetry"]
+    for f, groups in sorted(rec["groups"].items()):
+        log(f"  flush {f} groups (M, k, C): " + ", ".join(
+            f"({m}, {k}, {c})" for m, k, c in groups))
+    spans = [r for r in records if r["kind"] == "span"]
+    log("  flush window walls s (wave to merge): " + ", ".join(
+        f"{r['dur']:.3f}" for r in spans if r["name"] == "round"))
+    log(f"  wall {wall:.2f} s; makespan {t['makespan']!r} virtual s; "
+        f"staleness histogram {t['staleness_hist'].tolist()} (mean "
+        f"{t['mean_staleness']:.3f}); buffer occupancy histogram "
+        f"{t['buffer_occupancy_hist'].tolist()}; "
+        f"{t['n_group_dispatches']} group dispatches for "
+        f"{t['n_dispatches']} client dispatches; {t['n_merged_clients']} "
+        f"merged, {t['n_partial_flushes']} partial flushes, "
+        f"{t['n_violations']} violations")
+    by_name = {}
+    for r in spans:
+        if r["name"] in ASYNC_FLEET_SPANS:
+            n, d = by_name.get(r["name"], (0, 0.0))
+            by_name[r["name"]] = (n + 1, d + r["dur"])
+    log("  wall by span: " + ", ".join(
+        f"{k} {by_name.get(k, (0, 0.0))[0]}x "
+        f"{by_name.get(k, (0, 0.0))[1]:.3f} s "
+        f"({100 * by_name.get(k, (0, 0.0))[1] / wall:.1f}%)"
+        for k in ASYNC_FLEET_SPANS))
+    for h in out["history"]:
+        log(f"  flush {h.round}: n_participants {h.n_participants} "
+            f"n_coreset {h.n_coreset} n_dropped {h.n_dropped} "
+            f"sim_round_time {h.sim_round_time:.4f} train_loss "
+            f"{h.train_loss:.4f}")
+
+
+def check_same_medoids(got, want, what):
+    """The medoids of two async fleet runs per (flush, client)."""
+    check(len(got) == len(want) and all(
+        gf == wf and set(gm) == set(wm) for (gf, gm), (wf, wm)
+        in zip(got, want)), f"{what}: other flushes or clients selected")
+    diff = [(f, c) for (f, gm), (_, wm) in zip(got, want) for c in gm
+            if not (gm[c] == wm[c]).all()]
+    check(not diff, f"{what}: medoids differ for (flush, client) {diff}")
+
+
+def expected_async_faults(profile, n, seed, event_log):
+    """(dropped, corrupted) as the ``FaultTrace`` of ``profile`` draws
+    them for the completions of an async fleet's event log: each
+    completion's dispatch ordinal counts its client's dispatches before
+    it, a dropped completion is lost, and every other completion's
+    Byzantine client is corrupted when its flush merges (every completed
+    update merges: the run ends on a flush)."""
+    import numpy as np
+
+    from repro_torch.fed.fleet import FAULT_PROFILES, FaultTrace
+
+    ft = FaultTrace(FAULT_PROFILES[profile], n, seed=seed)
+    counts = np.zeros(n, np.int64)
+    dropped = corrupted = 0
+    for line in event_log:
+        kind, cid = line.split()[2], int(line.split()[3][len("cid="):])
+        if kind == "dispatch":
+            counts[cid] += 1
+        elif ft.dropped(cid, int(counts[cid]) - 1):
+            dropped += 1
+        else:
+            corrupted += int(ft.byzantine[cid])
+    return dropped, corrupted
+
+
+def phase_async_fleet(wl, clients, specs):
+    """Phase 14: ``run_async_fleet`` on phase 6's CNN fleet, its plain
+    twin, the loop engine at one flush and a faulted ``async_fleet``
+    scenario with the trimmed mean; returns the main run's launch
+    counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.fed.fleet import AsyncFleetConfig, run_scenario
+    from repro_torch.kernels import ops
+    from repro_torch.obs import InMemorySink, Recorder, use_recorder
+
+    cfg = AsyncFleetConfig(**ASYNC_FLEET)
+    out, rec, records, launches, wall = run_async_fleet_recorded(
+        wl, clients, specs, cfg, aggregator="fedbuff")
+    log_async_fleet(out, rec, records, wall)
+    log(f"  launches on the async fleet path: {launches}")
+    check(out["applied"] == cfg.max_updates,
+          f"the async fleet applied {out['applied']} flushes")
+    check(all(launches[k] > 0 for k in FLEET_KERNELS),
+          f"a fleet kernel never launched on the async fleet path: "
+          f"{launches}")
+    big = [g for gs in rec["groups"].values() for g in gs
+           if g[1] > 0 and g[0] >= 256]
+    check(bool(big), "no straggler group of the async fleet reached "
+          "M = 256")
+    check(out["telemetry"]["max_staleness"] >= 1,
+          "no update of staleness > 0 was merged")
+    check_params(out)
+    pwall, busy, _ = device_busy_share(lambda: run_async_fleet_recorded(
+        wl, clients, specs, cfg, aggregator="fedbuff"))
+    if busy is None:
+        log("  device busy share: not measured (the profiler saw no "
+            "device activity)")
+    else:
+        log(f"  device busy (the same run under torch.profiler, wall "
+            f"{pwall:.3f} s): busy {busy:.3f} s; idle "
+            f"{100 * (1 - busy / wall):.1f}% of the main run's wall "
+            f"{wall:.3f} s")
+
+    pout, prec, _, plaunches, pwall = run_async_fleet_recorded(
+        wl, clients, specs, dataclasses.replace(cfg, use_kernel=False),
+        aggregator="fedbuff")
+    log(f"  plain twin: wall {pwall:.2f} s, launches {plaunches}")
+    check(all(plaunches[k] == 0 for k in SELECTION_KERNELS),
+          f"use_kernel=False launched a selection kernel: {plaunches}")
+    check(pout["event_log"] == out["event_log"],
+          "the plain twin's event log differs")
+    check_same_medoids(prec["medoids"], rec["medoids"], "kernel and plain")
+    check(all(torch.equal(v, pout["params"][k])
+              for k, v in out["params"].items()),
+          "the plain twin's params are not bit-identical")
+    log(f"  event logs equal byte for byte ({len(out['event_log'])} "
+        f"events); {sum(len(m) for _, m in rec['medoids'])} coresets equal "
+        f"per (flush, client); params bit-identical")
+
+    one = dataclasses.replace(cfg, max_updates=1)
+    bout, brec, _, _, bwall = run_async_fleet_recorded(
+        wl, clients, specs, one, aggregator="fedbuff")
+    lout, lrec, _, llaunches, lwall = run_async_fleet_recorded(
+        wl, clients, specs, one, engine="loop", aggregator="fedbuff")
+    check(lout["event_log"] == bout["event_log"],
+          "the loop engine's event log differs from the batched one's")
+    check_same_medoids(lrec["medoids"], brec["medoids"], "loop and batched")
+    max_diff = max(float((bout["params"][k] - v).abs().max())
+                   for k, v in lout["params"].items())
+    log(f"  one flush: batched wall {bwall:.2f} s, loop wall {lwall:.2f} s "
+        f"(launches {llaunches}, {lout['telemetry']['n_group_dispatches']} "
+        f"dispatches against {bout['telemetry']['n_group_dispatches']}); "
+        f"event logs equal, params max abs diff {max_diff:.3e} "
+        f"(PARAMS_ATOL {PARAMS_ATOL_CNN})")
+    check(max_diff <= PARAMS_ATOL_CNN,
+          f"loop and batched params differ by {max_diff:.3e}")
+
+    recorder = Recorder([InMemorySink()])
+    with async_fleet_recording() as srec:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with use_recorder(recorder):
+            sout = run_scenario("pareto", "async_fleet", model=wl,
+                                clients_data=clients, faults="hostile",
+                                aggregator="trimmed_mean", max_updates=2,
+                                clients_per_round=16)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+    st = sout["telemetry"]
+    want = expected_async_faults("hostile", len(clients), 0,
+                                 sout["event_log"])
+    counters = recorder.metrics.snapshot()["counters"]
+    log(f"  run_scenario('pareto', 'async_fleet', hostile, trimmed_mean, "
+        f"max_updates=2, clients_per_round=16): wall {swall:.2f} s, "
+        f"{st['n_dropped_updates']} dropped and "
+        f"{st['n_corrupted_updates']} corrupted updates (FaultTrace "
+        f"replay {want}), {sout['applied']} flushes "
+        f"({st['n_partial_flushes']} partial), robust merges on "
+        f"{srec['robust_devices']}, "
+        f"launches {dict(ops.LAUNCHES)}")
+    check((st["n_dropped_updates"], st["n_corrupted_updates"]) == want,
+          "the scenario's dropped / corrupted counts are not the "
+          "FaultTrace's")
+    check((counters.get("faults.dropped_updates", 0),
+           counters.get("faults.corrupted_updates", 0)) == want,
+          "the fault counters differ from the FaultTrace's")
+    # a buffer of 16 with 16 in flight fills only while no update is
+    # lost: after a dropout the run ends on a partial flush
+    check(sout["aggregator"] == "trimmed_mean" and sout["applied"] >= 1,
+          "the scenario applied no trimmed-mean flush")
+    check(len(srec["robust_devices"]) == sout["applied"] and all(
+        d.startswith("cuda") for d in srec["robust_devices"]),
+        f"a robust merge ran off the card: {srec['robust_devices']}")
+    check_params(sout)
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phases 8-9: the translm fleet
 # ---------------------------------------------------------------------------
 
@@ -2172,8 +2461,8 @@ def char_lm_clients():
 
 
 def lane_sync_cnn():
-    """Phases 3-7 and 12-13; returns the launch counts of the sync, CNN
-    fleet, async and faulted CNN fleet paths."""
+    """Phases 3-7 and 12-14; returns the launch counts of the sync, CNN
+    fleet, async, faulted CNN fleet and async fleet paths."""
     with phase("main_path", "3: main path, FedCore on SmallCNN (28x28, "
                "16/32, F=1568), 200 clients, 3 rounds x 10 clients, E=5"):
         clients, cfg, kout, kstrat, launches, shapes = phase_main_path()
@@ -2198,8 +2487,13 @@ def lane_sync_cnn():
                "the trimmed mean, the robust rules under 'byzantine_boost', "
                "a faulted sync scenario"):
         xlaunches = phase_fleet_faults(wl, fclients, fspecs, fcfg, clients)
+    with phase("async_fleet", "14: async fleet main path, "
+               "run_async_fleet(engine='batched') on phase 6's fleet, "
+               "FedBuff, 3 flushes of 32, concurrency 64, E=5; its plain "
+               "twin, the loop engine, a faulted async_fleet scenario"):
+        aflaunches = phase_async_fleet(wl, fclients, fspecs)
     return {"sync": launches, "fleet": flaunches, "async": alaunches,
-            "fleet_faults": xlaunches}
+            "fleet_faults": xlaunches, "async_fleet": aflaunches}
 
 
 def lane_translm():
@@ -2356,8 +2650,8 @@ def main() -> int:
     with phase("kernels", "2: kernels against their plain versions (rtol "
                "1e-5, atol 1e-5*max|plain|)"):
         kernels = phase_kernels(dev, kernel_cases(dev, *phase2_groups(dev)))
-    log(f"[{time.time() - T0:.0f} s] == phases 3-13 in three concurrent "
-        f"lanes: 3-7 and 12-13 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 "
+    log(f"[{time.time() - T0:.0f} s] == phases 3-14 in three concurrent "
+        f"lanes: 3-7 and 12-14 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 "
         f"({LANES[2]})")
     by_path, lane_phases, sync_shapes = run_lanes()
     PHASE_SECONDS.update(lane_phases)

@@ -46,6 +46,7 @@ from repro_torch.fed.simulator import (  # noqa: F401
     straggler_mask,
 )
 from repro_torch.fed.strategies import (  # noqa: F401
+    STRATEGIES,
     ClientResult,
     FedAvg,
     FedAvgDS,
@@ -57,10 +58,18 @@ from repro_torch.fed.strategies import (  # noqa: F401
 
 # the fleet subpackage imports the server and simulator, so this stays the
 # last import of this module
-from repro_torch.fed.fleet.faults import (  # noqa: E402,F401
+from repro_torch.fed.fleet import (  # noqa: E402,F401
     FAULT_PROFILES,
+    SCENARIOS,
+    AdaptiveParticipation,
     FaultProfile,
     FaultTrace,
+    FleetConfig,
+    FleetEngine,
+    ParticipationConfig,
+    build_scenario,
     dirichlet_label_skew,
     get_fault_profile,
+    run_fleet,
+    run_scenario,
 )

@@ -1,7 +1,19 @@
 """The fleet runtime: cohort groups run batched (vmap over the client
 axis) or one client at a time, on the port's fleet workloads; the named
-heterogeneity scenarios that drive the sync, async and fleet runtimes;
+heterogeneity scenarios that drive the sync, async, fleet and async
+fleet runtimes; the event-driven async fleet engine and its merge rules;
 and the fault axis."""
+from repro_torch.fed.fleet.async_engine import (  # noqa: F401
+    ASYNC_MERGES,
+    AsyncFleetConfig,
+    AsyncMergeRule,
+    DelayedGradientMerge,
+    FedAsyncMerge,
+    FedBuffMerge,
+    RobustMerge,
+    as_merge_rule,
+    run_async_fleet,
+)
 from repro_torch.fed.fleet.faults import (  # noqa: F401
     FAULT_PROFILES,
     FaultProfile,

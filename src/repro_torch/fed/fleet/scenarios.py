@@ -21,12 +21,13 @@ comparable across scenarios):
   * ``device_classes``   — a 3-class hardware mixture (low-end 0.3×,
                            mid 1×, flagship 3×) with per-device spread.
 
-Ported runtimes: ``"sync"`` (``run_federated`` with ``FedCore``),
-``"async"`` (``run_federated_async`` with ``FedCore``) and ``"fleet"``
-(``run_fleet``, engines ``batched`` and ``loop``), each with the fault
-axis and the robust aggregators.  Not ported yet, each raising
-``NotImplementedError``: the ``"async_fleet"`` runtime (ROADMAP item
-11b) and ``fleet_engine="sharded"`` (item 15, raised by ``run_fleet``).
+Runtimes: ``"sync"`` (``run_federated`` with ``FedCore``), ``"async"``
+(``run_federated_async`` with ``FedCore``), ``"fleet"`` (``run_fleet``)
+and ``"async_fleet"`` (``run_async_fleet``), the fleet ones with engines
+``batched`` and ``loop``, each with the fault axis and the robust
+aggregators.  Not ported yet: ``fleet_engine="sharded"`` (ROADMAP item
+15), which ``run_fleet`` and ``run_async_fleet`` raise as
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -141,8 +142,11 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
     event-driven runtime, ``run_federated_async`` with ``FedCore``: it
     applies ``max_updates`` server updates, default ``rounds ×
     clients_per_round``, with at most ``concurrency`` clients in flight
-    and a record every ``clients_per_round`` updates) or ``"fleet"``
-    (``run_fleet``; ``fleet_engine`` is ``"batched"`` or ``"loop"``).
+    and a record every ``clients_per_round`` updates), ``"fleet"``
+    (``run_fleet``) or ``"async_fleet"`` (``run_async_fleet``: a flush
+    every ``clients_per_round`` completions, ``max_updates`` flushes,
+    default ``rounds``, with at least ``clients_per_round`` clients in
+    flight); ``fleet_engine`` is ``"batched"`` or ``"loop"``.
     Each consumes the same specs and capability trace from the registry,
     so a scenario means the same fleet in each.  ``use_kernel`` is the
     tri-state kernel switch of the coreset selection, threaded into the
@@ -163,27 +167,27 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
     rule's name (``repro_torch.fed.aggregators.ROBUST_METHODS``) on every
     runtime; the async runtime also takes the streaming aggregators'
     names (``"fedasync"``, ``"fedbuff"``, ``"delayed_grad"``,
-    ``"sync_mean"``) or an ``Aggregator``.
+    ``"sync_mean"``) or an ``Aggregator``; the async fleet runtime the
+    merge rules' names (``repro_torch.fed.fleet.ASYNC_MERGES``), a merge
+    rule or a streaming aggregator (see ``as_merge_rule``).
 
-    Not ported yet, each raising ``NotImplementedError``: the
-    ``"async_fleet"`` runtime (ROADMAP item 11b) and
-    ``fleet_engine="sharded"`` (item 15).
+    Not ported yet: ``fleet_engine="sharded"`` (ROADMAP item 15), which
+    the fleet runtimes raise as ``NotImplementedError``.
     """
     from repro_torch.core.coreset import FedCoreConfig
     from repro_torch.fed.aggregators import (AGGREGATORS, ROBUST_METHODS,
                                              RobustAggregate,
                                              SyncWeightedMean)
     from repro_torch.fed.events import AsyncFLConfig, run_federated_async
+    from repro_torch.fed.fleet.async_engine import (AsyncFleetConfig,
+                                                    run_async_fleet)
     from repro_torch.fed.fleet.batched import FleetConfig, run_fleet
     from repro_torch.fed.fleet.faults import (dirichlet_label_skew,
                                               get_fault_profile)
     from repro_torch.fed.server import FLConfig, run_federated
     from repro_torch.fed.strategies import FedCore, LocalTrainer
 
-    if runtime == "async_fleet":
-        raise NotImplementedError(
-            "the 'async_fleet' runtime is not ported yet: ROADMAP item 11b")
-    if runtime not in ("sync", "async", "fleet"):
+    if runtime not in ("sync", "async", "fleet", "async_fleet"):
         raise ValueError(f"unknown runtime {runtime!r}")
 
     wl: Optional[FleetWorkload] = None
@@ -254,7 +258,7 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
                                   test_data=test_data, scheduler=scheduler,
                                   faults=profile, verbose=verbose,
                                   device=device)
-    else:
+    elif runtime == "fleet":
         cfg = FleetConfig(epochs=epochs, batch_size=batch_size, lr=lr,
                           seed=seed, use_kernel=use_kernel, cost=cost,
                           aggregator=by_name)
@@ -263,6 +267,19 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
                         straggler_pct=straggler_pct, test_data=test_data,
                         engine=fleet_engine, faults=profile,
                         verbose=verbose, device=device)
+    else:
+        cfg = AsyncFleetConfig(
+            max_updates=max_updates or rounds,
+            buffer_k=clients_per_round,
+            concurrency=max(concurrency, clients_per_round),
+            epochs=epochs, batch_size=batch_size, lr=lr,
+            straggler_pct=straggler_pct, seed=seed,
+            use_kernel=use_kernel, trace=trace, cost=cost)
+        out = run_async_fleet(model, clients_data, specs, cfg,
+                              aggregator=aggregator, scheduler=scheduler,
+                              test_data=test_data, engine=fleet_engine,
+                              faults=profile, verbose=verbose,
+                              device=device)
     out["scenario"] = name
     out["runtime"] = runtime
     out.setdefault("faults", fault_name)

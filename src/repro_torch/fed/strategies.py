@@ -243,3 +243,11 @@ class FedCore(Strategy):
                             epochs_done=eff_epochs, final_loss=loss,
                             deadline_violated=violated)
 
+
+
+STRATEGIES = {
+    "fedavg": FedAvg,
+    "fedavg_ds": FedAvgDS,
+    "fedprox": FedProx,
+    "fedcore": FedCore,
+}

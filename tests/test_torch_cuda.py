@@ -491,6 +491,48 @@ def test_short_fleet_run_goes_through_the_fleet_kernels(cuda):
     assert all(v.device.type == "cuda" for v in out["params"].values())
 
 
+
+def test_short_async_fleet_run_matches_its_plain_twin(cuda):
+    """Two flushes of the batched async fleet engine on the CNN workload
+    (every client in flight, so the flush groups fall on both sides of
+    the M = 256 cutover) through the fleet's selection kernels, and its
+    ``use_kernel=False`` twin: the same event log, bit-identical
+    parameters (deterministic cuDNN, as ``chip_smoke.py`` sets it)."""
+    import dataclasses
+
+    from repro_torch.fed.fleet import (AsyncFleetConfig, get_workload,
+                                       run_async_fleet)
+    from repro_torch.fed.simulator import make_client_specs
+
+    wl = get_workload("cnn")
+    clients = wl.make_clients(n_clients=24, seed=0, mean_samples=120.0,
+                              std_samples=90.0)
+    specs = make_client_specs([len(d["y"]) for d in clients],
+                              np.random.default_rng(0))
+    cfg = AsyncFleetConfig(max_updates=2, buffer_k=24, concurrency=24,
+                           epochs=2, batch_size=8, lr=0.05,
+                           straggler_pct=50.0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ops.reset_launch_counts()
+        out = run_async_fleet(wl, clients, specs, cfg)
+        launches = dict(ops.LAUNCHES)
+        plain = run_async_fleet(wl, clients, specs,
+                                dataclasses.replace(cfg, use_kernel=False))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert out["applied"] == 2
+    assert sum(h.n_coreset for h in out["history"]) > 0
+    for name in ("pairwise_l2_batched", "build_cost_from_feats",
+                 "delta_sweep_from_feats", "build_cost", "delta_sweep"):
+        assert launches[name] > 0, launches
+    assert plain["event_log"] == out["event_log"]
+    for k, v in out["params"].items():
+        assert v.device.type == "cuda"
+        assert torch.equal(v, plain["params"][k]), k
+
+
 # ---------------------------------------------------------------------------
 # kernel 7: flash attention, its gradient under vmap, and a translm fleet
 # ---------------------------------------------------------------------------

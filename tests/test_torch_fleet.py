@@ -43,8 +43,9 @@ from repro.obs.schema import validate_records  # noqa: E402
 import repro_torch.fed.fleet.batched as tb  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.fed.fleet import (  # noqa: E402
-    AdaptiveParticipation, FleetConfig, ParticipationConfig, get_workload,
-    make_cohort_groups, nominal_budgets, run_fleet, run_scenario)
+    AdaptiveParticipation, AsyncFleetConfig, FleetConfig,
+    ParticipationConfig, get_workload, make_cohort_groups, nominal_budgets,
+    run_async_fleet, run_fleet)
 from repro_torch.fed.simulator import (ClientSpec,  # noqa: E402
                                        straggler_deadline)
 from repro_torch.obs import (InMemorySink, Recorder,  # noqa: E402
@@ -287,8 +288,23 @@ def test_not_ported_arguments_raise():
         run(engine="async")
     with pytest.raises(ValueError, match="unknown fleet aggregator"):
         run(cfg=FleetConfig(aggregator="mean", **CFG))
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        run_scenario("uniform", "async_fleet", workload="mlp", device="cpu")
+
+    def run_async(**kwargs):
+        return run_async_fleet(wl, train, tspecs, AsyncFleetConfig(),
+                               device="cpu", **kwargs)
+
+    with pytest.raises(NotImplementedError, match="item 15"):
+        run_async(engine="sharded")
+    with pytest.raises(NotImplementedError, match="item 13"):
+        run_async(checkpoint_dir="ckpt", checkpoint_every=1)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        run_async(checkpoint_every=1)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        run_async(resume=True)
+    with pytest.raises(ValueError, match="unknown async fleet engine"):
+        run_async(engine="async")
+    with pytest.raises(ValueError, match="at least one client"):
+        run_async_fleet(wl, [], [], AsyncFleetConfig(), device="cpu")
     assert get_workload("translm").name == "translm"
     with pytest.raises(ValueError, match="unknown fleet workload"):
         get_workload("resnet")

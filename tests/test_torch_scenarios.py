@@ -252,8 +252,10 @@ def test_not_ported_arguments_raise():
         return run_scenario("uniform", runtime, workload="mlp", n_clients=4,
                             rounds=1, device="cpu", **kwargs)
 
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        run("async_fleet")
+    with pytest.raises(NotImplementedError, match="item 15"):
+        run("async_fleet", fleet_engine="sharded")
+    with pytest.raises(ValueError, match="unknown async fleet engine"):
+        run("async_fleet", fleet_engine="async")
     with pytest.raises(NotImplementedError, match="item 15"):
         run(fleet_engine="sharded")
     with pytest.raises(ValueError, match="unknown runtime"):
