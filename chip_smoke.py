@@ -161,9 +161,25 @@ phases run in order and any failure exits non-zero:
     ``run_scenario("pareto", "async_fleet", faults="hostile",
     aggregator="trimmed_mean", max_updates=2, clients_per_round=16)``:
     the dropped and corrupted counts a replay of the ``FaultTrace`` over
-    its event log gives, and both trimmed-mean merges on the card.
+    its event log gives, and both trimmed-mean merges on the card;
+15. checkpoint and resume, the JL projection and the ε audit: (a) phase
+    6's fleet for 2 rounds with ``checkpoint_every=1`` (under
+    ``build/chip_smoke/checkpoints/``), then ``resume=True`` to 3: the
+    history equal to phase 6's, the params bit-identical, the fleet
+    kernels (4, 2, 3, 5, 6) each launched in the resumed round; (b)
+    phase 14's async fleet for 1 flush checkpointed, then resumed to 3:
+    the event log and history equal to phase 14 (a)'s, the params
+    bit-identical, the fleet kernels each launched after the resume; (c)
+    phase 3's run for ``PROJECTED_ROUNDS`` round(s) at
+    ``FedCoreConfig(projection_dim=256)``: kernels 1-3 each launched at
+    F' = 256, and its ``use_kernel=False`` twin with equal coresets per
+    (round, client) and bit-identical params; (d) one phase-3 client
+    with m >= 160 at phase 3's final params: ``true_per_sample_grads``
+    of the whole SmallCNN (P = 28,938), ε of a budget-24 coreset at F'
+    = 1568, 256, 64 and 16 with each selection's wall, and ε at the
+    full budget below 1e-5 of ‖Σg‖/m.
 
-Phases 1-2 run alone.  Phases 3-7 and 12-14 (the sync and async runtimes
+Phases 1-2 run alone.  Phases 3-7 and 12-15 (the sync and async runtimes
 and the CNN fleet), 8-9 (the ``translm`` fleet) and 10-11 (the ``xlstm``
 fleet) share no state, and each group is host-bound (the card idles most of each round),
 so they run as three concurrent processes on the one card, each a
@@ -171,7 +187,7 @@ so they run as three concurrent processes on the one card, each a
 itself): a lane sets its own launch counts to 0 around its main path,
 writes its launch counts and phase seconds to ``build/chip_smoke/``, and
 its output is printed in phase order once every lane has ended.  Round
-walls, idle shares and step times of phases 3-14 are therefore taken
+walls, idle shares and step times of phases 3-15 are therefore taken
 with the other two lanes running.  A lane that fails stops the others;
 lanes still running ``LANE_DEADLINE_S`` seconds after the start are
 stopped and the script fails with what they printed so far.
@@ -195,7 +211,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 LANE_DIR = ROOT / "build" / "chip_smoke"
-# the lanes of phases 3-14, run concurrently (see the module docstring)
+# the lanes of phases 3-15, run concurrently (see the module docstring)
 LANES = ("sync_cnn", "translm", "xlstm")
 # lanes still running this long after the start are stopped: the whole
 # script must end within 1200 s
@@ -899,7 +915,7 @@ def recording_fedcore():
     return RecordingFedCore
 
 
-def run_fl(model, clients, cfg, use_kernel=None):
+def run_fl(model, clients, cfg, use_kernel=None, projection_dim=None):
     """One run_federated on the card with recording on; returns (output,
     strategy, span records, launch counts, wall seconds)."""
     import numpy as np
@@ -914,7 +930,7 @@ def run_fl(model, clients, cfg, use_kernel=None):
                               np.random.default_rng(0))
     strategy = recording_fedcore()(
         LocalTrainer(model, cfg.lr, cfg.batch_size),
-        FedCoreConfig(use_kernel=use_kernel))
+        FedCoreConfig(use_kernel=use_kernel, projection_dim=projection_dim))
     init = model.init(torch.Generator().manual_seed(cfg.seed))
     sink = InMemorySink()
     rec = Recorder([sink])
@@ -1170,12 +1186,12 @@ def cnn_fleet_workload():
 
 
 def run_fleet_recorded(wl, clients, specs, cfg, rounds, engine, faults=None,
-                       stats=None):
+                       stats=None, **kwargs):
     """One ``run_fleet`` on the card with recording on, keeping each
     round's medoids {cid: indices} and aggregated parameters (and its
-    ``FleetRoundStats`` in ``stats``, a list, when given); returns
-    (output, [(medoids, params)] per round, span records, launch counts,
-    wall seconds)."""
+    ``FleetRoundStats`` in ``stats``, a list, when given); ``kwargs`` go
+    to ``run_fleet``.  Returns (output, [(medoids, params)] per round,
+    span records, launch counts, wall seconds)."""
     import numpy as np
     import torch
 
@@ -1205,7 +1221,7 @@ def run_fleet_recorded(wl, clients, specs, cfg, rounds, engine, faults=None,
         with use_recorder(Recorder([sink])):
             out = run_fleet(wl, clients, specs, cfg, rounds,
                             straggler_pct=30.0, engine=engine,
-                            faults=faults)
+                            faults=faults, **kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
@@ -1451,7 +1467,7 @@ def log_kernel_time(by_name, busy, what, match):
 def fleet_main_run(wl, clients, specs, cfg, required):
     """The fleet main path: 3 batched rounds with the launch counts set to
     0 just before and read just after; every kernel of ``required`` must
-    have launched.  Returns (kept rounds, launch counts)."""
+    have launched.  Returns (kept rounds, launch counts, output)."""
     out, kept, records, launches, wall = run_fleet_recorded(
         wl, clients, specs, cfg, 3, "batched")
     sel_s, round_s = report_fleet_rounds(records)
@@ -1471,7 +1487,7 @@ def fleet_main_run(wl, clients, specs, cfg, required):
     check(all(h.n_coreset > 0 for h in out["history"]),
           "a fleet round built no coreset")
     check_params(out)
-    return kept, launches
+    return kept, launches, out
 
 
 def phase_fleet():
@@ -1481,7 +1497,8 @@ def phase_fleet():
     clients = wl.make_clients()
     specs, cfg, groups = fleet_setup(wl, clients)
     log_groups(groups)
-    kept, launches = fleet_main_run(wl, clients, specs, cfg, FLEET_KERNELS)
+    kept, launches, out = fleet_main_run(wl, clients, specs, cfg,
+                                         FLEET_KERNELS)
 
     # three more one-round runs, alike but for what watches them: bare
     # (the wall), with CUDA events around the selection's parts, and
@@ -1499,7 +1516,7 @@ def phase_fleet():
         f"{ewall:.3f} s): " + ", ".join(
             f"{part} {n} calls {t:.3f} s ({100 * t / bare_wall:.1f}% of "
             f"the bare round)" for part, (n, t) in parts.items()))
-    return wl, clients, specs, cfg, kept, launches
+    return wl, clients, specs, cfg, kept, launches, out
 
 
 def check_same_rounds(kept, other, rounds, what):
@@ -1958,8 +1975,8 @@ def expected_async_faults(profile, n, seed, event_log):
 def phase_async_fleet(wl, clients, specs):
     """Phase 14: ``run_async_fleet`` on phase 6's CNN fleet, its plain
     twin, the loop engine at one flush and a faulted ``async_fleet``
-    scenario with the trimmed mean; returns the main run's launch
-    counts."""
+    scenario with the trimmed mean; returns the main run's launch counts
+    and output."""
     import dataclasses
 
     import torch
@@ -2067,7 +2084,220 @@ def phase_async_fleet(wl, clients, specs):
         d.startswith("cuda") for d in srec["robust_devices"]),
         f"a robust merge ran off the card: {srec['robust_devices']}")
     check_params(sout)
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: checkpoint and resume, the projected sync round, the ε audit
+# ---------------------------------------------------------------------------
+
+# (c)'s JL width and rounds; (d)'s coreset budget and projection widths
+# (benchmarks/perf_h3_projection.py's; None is the full F = 1568)
+PROJECTION_DIM = 256
+PROJECTED_ROUNDS = 1
+EPS_BUDGET = 24
+EPS_DIMS = (None, 256, 64, 16)
+CKPT_DIR = LANE_DIR / "checkpoints"
+
+
+def history_text(history):
+    """A run's history as JSON text: equal records give equal text, NaN
+    fields included."""
+    import dataclasses
+
+    return json.dumps([dataclasses.asdict(h) for h in history])
+
+
+def log_checkpoints(records, directory, wall, what):
+    """The checkpointed run's wall, its ``checkpoint`` spans and the
+    files it left."""
+    spans = [r["dur"] for r in records
+             if r["kind"] == "span" and r["name"] == "checkpoint"]
+    files = sorted(directory.iterdir())
+    log(f"  {what}: wall {wall:.2f} s; {len(spans)} checkpoints of "
+        + ", ".join(f"{1e3 * d:.1f}" for d in spans) + " ms; "
+        + ", ".join(f"{f.name} {f.stat().st_size} B" for f in files))
+    check(bool(spans) and any(f.suffix == ".npz" for f in files),
+          f"{what}: no checkpoint was written")
+
+
+def resumed_at(records):
+    return [r["data"]["round"] for r in records
+            if r["kind"] == "event" and r["name"] == "resume"]
+
+
+def phase_fleet_resume(wl, clients, specs, cfg, fout):
+    """(a) phase 6's fleet: 2 rounds checkpointed every round, then
+    ``resume=True`` to 3, against phase 6's 3 uninterrupted rounds: the
+    same history and bit-identical params; the resumed round launches
+    every fleet kernel.  Returns its launch counts."""
+    import shutil
+
+    import torch
+
+    d = CKPT_DIR / "fleet"
+    shutil.rmtree(d, ignore_errors=True)
+    _, _, crecords, _, cwall = run_fleet_recorded(
+        wl, clients, specs, cfg, 2, "batched", checkpoint_dir=str(d),
+        checkpoint_every=1)
+    log_checkpoints(crecords, d, cwall, "(a) 2 rounds, checkpoint_every=1")
+    out, kept, records, launches, wall = run_fleet_recorded(
+        wl, clients, specs, cfg, 3, "batched", checkpoint_dir=str(d),
+        resume=True)
+    log(f"  (a) resume=True to 3 rounds: resumed at round "
+        f"{resumed_at(records)}, wall {wall:.2f} s, launches {launches}")
+    check(resumed_at(records) == [2] and len(kept) == 1,
+          f"the fleet did not resume at round 2: {resumed_at(records)}")
+    check(all(launches[k] > 0 for k in FLEET_KERNELS),
+          f"a fleet kernel never launched in the resumed round: {launches}")
+    check(history_text(out["history"]) == history_text(fout["history"]),
+          "the resumed fleet's history differs from phase 6's")
+    check(all(torch.equal(v, out["params"][k])
+              for k, v in fout["params"].items()),
+          "the resumed fleet's params are not phase 6's bit for bit")
+    check_params(out)
+    log(f"  (a) history equal to phase 6's ({len(out['history'])} rounds), "
+        f"params bit-identical")
     return launches
+
+
+def phase_async_fleet_resume(wl, clients, specs, aout):
+    """(b) phase 14's async fleet: 1 flush checkpointed, then
+    ``resume=True`` to 3, against phase 14 (a): the same event log and
+    history, bit-identical params.  Returns the resumed run's launch
+    counts."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch.fed.fleet import AsyncFleetConfig
+
+    cfg = AsyncFleetConfig(**ASYNC_FLEET)
+    d = CKPT_DIR / "async_fleet"
+    shutil.rmtree(d, ignore_errors=True)
+    _, _, crecords, _, cwall = run_async_fleet_recorded(
+        wl, clients, specs, dataclasses.replace(cfg, max_updates=1),
+        aggregator="fedbuff", checkpoint_dir=str(d), checkpoint_every=1)
+    log_checkpoints(crecords, d, cwall, "(b) 1 flush, checkpoint_every=1")
+    out, _, records, launches, wall = run_async_fleet_recorded(
+        wl, clients, specs, cfg, aggregator="fedbuff",
+        checkpoint_dir=str(d), resume=True)
+    log(f"  (b) resume=True to {cfg.max_updates} flushes: resumed at flush "
+        f"{resumed_at(records)}, wall {wall:.2f} s, launches {launches}")
+    check(resumed_at(records) == [1] and out["applied"] == cfg.max_updates,
+          f"the async fleet did not resume at flush 1: "
+          f"{resumed_at(records)}")
+    check(all(launches[k] > 0 for k in FLEET_KERNELS),
+          f"a fleet kernel never launched after the resume: {launches}")
+    check(out["event_log"] == aout["event_log"],
+          "the resumed async fleet's event log differs from phase 14's")
+    check(history_text(out["history"]) == history_text(aout["history"]),
+          "the resumed async fleet's history differs from phase 14's")
+    check(all(torch.equal(v, out["params"][k])
+              for k, v in aout["params"].items()),
+          "the resumed async fleet's params are not phase 14's bit for bit")
+    check_params(out)
+    log(f"  (b) event log equal to phase 14's ({len(out['event_log'])} "
+        f"events), history equal, params bit-identical")
+    return launches
+
+
+def phase_projected_sync(clients, cfg):
+    """(c) phase 3's run at ``FedCoreConfig(projection_dim=256)`` for
+    ``PROJECTED_ROUNDS`` rounds, kernels 1-3 at F' = 256, and its
+    ``use_kernel=False`` twin: equal coresets per (round, client),
+    bit-identical params.  Returns the kernel run's launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import SmallCNN
+
+    pcfg = dataclasses.replace(cfg, rounds=PROJECTED_ROUNDS)
+    kout, kstrat, records, launches, wall = run_fl(
+        SmallCNN(), clients, pcfg, projection_dim=PROJECTION_DIM)
+    devices, sel_s, round_s = report_rounds(kout, records)
+    log(f"  (c) projection_dim={PROJECTION_DIM}, {PROJECTED_ROUNDS} "
+        f"round(s): wall {wall:.2f} s; selection {sel_s:.3f} s of "
+        f"{round_s:.3f} s in rounds; {len(kstrat.selected)} coresets, "
+        f"budgets {[b for _, b, _ in kstrat.selected]} of m "
+        f"{[len(f) for f, _, _ in kstrat.selected]}; launches {launches}")
+    check(len(kstrat.selected) > 0, "the projected run built no coreset")
+    check(all(launches[k] > 0 for k in SYNC_KERNELS),
+          f"a kernel never launched on the projected round: {launches}")
+    check(all(str(d).startswith("cuda") for d in devices),
+          f"a projected coreset was built off the card: {devices}")
+    pout, pstrat, _, plaunches, pwall = run_fl(
+        SmallCNN(), clients, pcfg, use_kernel=False,
+        projection_dim=PROJECTION_DIM)
+    log(f"  (c) plain twin: wall {pwall:.2f} s, launches {plaunches}")
+    check(all(n == 0 for n in plaunches.values()),
+          f"use_kernel=False launched a kernel: {plaunches}")
+    check(len(pstrat.selected) == len(kstrat.selected),
+          "the plain twin built another number of coresets")
+    diff = [i for i, (a, b) in enumerate(zip(kstrat.selected,
+                                             pstrat.selected))
+            if not np.array_equal(a[2], b[2])]
+    check(not diff, f"kernel and plain coresets differ at selections {diff}")
+    check(all(torch.equal(v, pout["params"][k])
+              for k, v in kout["params"].items()),
+          "the projected run's params are not its plain twin's bit for bit")
+    check_params(kout)
+    log(f"  (c) {len(kstrat.selected)} coresets equal per (round, client), "
+        f"params bit-identical")
+    return launches
+
+
+def phase_epsilon_audit(clients, params):
+    """(d) the ε of Assumption A.3 on the card: one phase-3 client with m
+    >= 160, exact per-sample gradients of the full SmallCNN at phase 3's
+    final params, ε of a budget-24 coreset at each of ``EPS_DIMS`` with
+    its selection wall, and ε at the full budget below 1e-5 relative to
+    ‖Σg‖/m."""
+    import torch
+
+    from repro_torch.core import (build_coreset, coreset_epsilon,
+                                  grad_features, true_per_sample_grads)
+    from repro_torch.models import SmallCNN
+
+    cid = next(i for i, d in enumerate(clients) if len(d["y"]) >= 160)
+    data, model = clients[cid], SmallCNN()
+    m = len(data["y"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads = true_per_sample_grads(model.loss, params, data)
+    gwall = time.perf_counter() - t0
+    n_params = sum(v.numel() for v in params.values())
+    check(grads.shape == (m, n_params),
+          f"per-sample gradients of shape {grads.shape}")
+    g = torch.as_tensor(grads, device=next(iter(params.values())).device)
+    scale = float(torch.linalg.vector_norm(g.sum(0))) / m
+    log(f"  (d) client {cid}, m = {m}: true_per_sample_grads ({m}, "
+        f"{n_params}) in {gwall:.3f} s; ‖Σg‖/m = {scale:.6e}")
+    feats = grad_features(model, params, data)
+    build_coreset(feats, EPS_BUDGET)            # warm: the first launches
+    base = None
+    for dim in EPS_DIMS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cs = build_coreset(feats, EPS_BUDGET, projection_dim=dim)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        eps = float(coreset_epsilon(g, cs))
+        idx = set(cs.indices.tolist())
+        base = idx if base is None else base
+        log(f"  (d) F' = {dim or feats.shape[1]}: ε = {eps:.6e} "
+            f"({eps / scale:.4f} of ‖Σg‖/m), overlap with the full-width "
+            f"coreset {100 * len(idx & base) / EPS_BUDGET:.0f}%, selection "
+            f"{1e3 * wall:.2f} ms")
+    full = build_coreset(feats, m)
+    eps_full = float(coreset_epsilon(g, full))
+    log(f"  (d) full budget (k = m = {m}): ε = {eps_full:.3e} "
+        f"({eps_full / scale:.3e} of ‖Σg‖/m)")
+    check(eps_full / scale < 1e-5,
+          f"ε at the full budget is {eps_full / scale:.3e} of ‖Σg‖/m")
 
 
 # ---------------------------------------------------------------------------
@@ -2101,9 +2331,9 @@ def phase_translm(wl, clients, specs, cfg, groups):
     from repro_torch.fed.fleet import run_fleet
 
     log_groups(groups)
-    kept, launches = fleet_main_run(wl, clients, specs, cfg,
-                                    FLEET_KERNELS + ("flash_attention",
-                                                     "rmsnorm"))
+    kept, launches, _ = fleet_main_run(wl, clients, specs, cfg,
+                                       FLEET_KERNELS + ("flash_attention",
+                                                        "rmsnorm"))
 
     def one_round():
         return run_fleet(wl, clients, specs, cfg, 1, straggler_pct=30.0)
@@ -2275,8 +2505,8 @@ def phase_xlstm(wl, clients, specs, cfg, groups):
     from repro_torch.fed.fleet import run_fleet
 
     log_groups(groups)
-    kept, launches = fleet_main_run(wl, clients, specs, cfg,
-                                    FLEET_KERNELS + ("rmsnorm",))
+    kept, launches, _ = fleet_main_run(wl, clients, specs, cfg,
+                                       FLEET_KERNELS + ("rmsnorm",))
 
     def one_round():
         return run_fleet(wl, clients, specs, cfg, 1, straggler_pct=30.0)
@@ -2438,6 +2668,18 @@ def phase(key, title):
     PHASE_SECONDS[key] = time.perf_counter() - t
 
 
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` gives them."""
+    import torch
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else
+            f"{torch.cuda.get_device_name(0)}, power limit not read")
+
+
 def setup_torch():
     """TF32 off and deterministic cuDNN, in every process of the run."""
     import torch
@@ -2461,8 +2703,9 @@ def char_lm_clients():
 
 
 def lane_sync_cnn():
-    """Phases 3-7 and 12-14; returns the launch counts of the sync, CNN
-    fleet, async, faulted CNN fleet and async fleet paths."""
+    """Phases 3-7 and 12-15; returns the launch counts of the sync, CNN
+    fleet, async, faulted CNN fleet and async fleet paths, and of phase
+    15's resumed fleet, resumed async fleet and projected sync round."""
     with phase("main_path", "3: main path, FedCore on SmallCNN (28x28, "
                "16/32, F=1568), 200 clients, 3 rounds x 10 clients, E=5"):
         clients, cfg, kout, kstrat, launches, shapes = phase_main_path()
@@ -2474,7 +2717,7 @@ def lane_sync_cnn():
     with phase("fleet", "6: fleet main path, run_fleet(engine='batched') "
                "on SmallCNN (28x28, 16/32, F=1568), 200 clients, every "
                "client every round, 3 rounds, E=5"):
-        wl, fclients, fspecs, fcfg, fkept, flaunches = phase_fleet()
+        wl, fclients, fspecs, fcfg, fkept, flaunches, fout = phase_fleet()
     with phase("fleet_ab", "7: fleet A/Bs, use_kernel=False and "
                "engine='loop'"):
         phase_fleet_ab(wl, fclients, fspecs, fcfg, fkept, PARAMS_ATOL_CNN,
@@ -2491,9 +2734,19 @@ def lane_sync_cnn():
                "run_async_fleet(engine='batched') on phase 6's fleet, "
                "FedBuff, 3 flushes of 32, concurrency 64, E=5; its plain "
                "twin, the loop engine, a faulted async_fleet scenario"):
-        aflaunches = phase_async_fleet(wl, fclients, fspecs)
+        aflaunches, aout = phase_async_fleet(wl, fclients, fspecs)
+    with phase("resume", "15: checkpoint and resume of phase 6's fleet and "
+               "phase 14's async fleet; phase 3's round at projection_dim="
+               "256 and its plain twin; the ε audit"):
+        log(f"  card: {card_line()}")
+        rlaunches = phase_fleet_resume(wl, fclients, fspecs, fcfg, fout)
+        arlaunches = phase_async_fleet_resume(wl, fclients, fspecs, aout)
+        plaunches = phase_projected_sync(clients, cfg)
+        phase_epsilon_audit(clients, kout["params"])
     return {"sync": launches, "fleet": flaunches, "async": alaunches,
-            "fleet_faults": xlaunches, "async_fleet": aflaunches}
+            "fleet_faults": xlaunches, "async_fleet": aflaunches,
+            "fleet_resume": rlaunches, "async_fleet_resume": arlaunches,
+            "sync_projected": plaunches}
 
 
 def lane_translm():
@@ -2624,11 +2877,7 @@ def main() -> int:
     signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
 
     log("== phase 1: set-up")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else \
-        f"{torch.cuda.get_device_name(0)}, power limit not read"
+    card = card_line()
     log(f"  card: {card}")
     log(f"  python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -2650,8 +2899,8 @@ def main() -> int:
     with phase("kernels", "2: kernels against their plain versions (rtol "
                "1e-5, atol 1e-5*max|plain|)"):
         kernels = phase_kernels(dev, kernel_cases(dev, *phase2_groups(dev)))
-    log(f"[{time.time() - T0:.0f} s] == phases 3-14 in three concurrent "
-        f"lanes: 3-7 and 12-14 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 "
+    log(f"[{time.time() - T0:.0f} s] == phases 3-15 in three concurrent "
+        f"lanes: 3-7 and 12-15 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 "
         f"({LANES[2]})")
     by_path, lane_phases, sync_shapes = run_lanes()
     PHASE_SECONDS.update(lane_phases)

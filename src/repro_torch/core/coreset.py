@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import gradients
 from repro_torch.core.kmedoids import (kmedoids_batched,
                                        kmedoids_batched_from_feats,
                                        kmedoids_jax, kmedoids_numpy,
@@ -61,12 +62,13 @@ def build_coreset(features: torch.Tensor, budget: int, *,
     k-medoids reductions (None = CUDA kernels for tensors on the card,
     plain PyTorch on the CPU).  ``backend="jax"`` is the on-device solver
     (the name is the JAX package's); ``"numpy"`` the float64 host oracle.
+    ``projection_dim`` applies a JL random projection first
+    (``repro_torch.core.gradients.project_features``).
     """
-    if projection_dim is not None:
-        raise NotImplementedError(
-            "projection_dim (JL projection) is not ported yet")
     m = features.shape[0]
     budget = min(budget, m)
+    if projection_dim is not None:
+        features = gradients.project_features(features, projection_dim)
     D2 = pairwise_sq_dists(features, use_kernel=use_kernel)
     D = torch.sqrt(torch.clamp_min(D2, 0.0))
     if backend == "numpy":
@@ -118,6 +120,21 @@ def build_coreset_batched(features: torch.Tensor, valid: torch.Tensor,
                    objective=res.objective, assignment=res.assignment)
 
 
+def coreset_epsilon(grads_full, coreset: Coreset) -> torch.Tensor:
+    """Audit Assumption A.3 on *true* per-sample gradients.
+
+    grads_full: (m, P) per-sample gradients (flattened; a tensor or a
+    numpy array, as ``true_per_sample_grads`` gives), taken to the
+    coreset's device.  Returns ε = (1/m)‖Σⱼ gⱼ − Σₖ δₖ g_{medoid k}‖₂.
+    """
+    g = torch.as_tensor(grads_full, device=coreset.indices.device)
+    m = g.shape[0]
+    full = torch.sum(g, dim=0)
+    sel = g[coreset.indices.long()]
+    approx = torch.sum(sel * coreset.weights[:, None], dim=0)
+    return torch.linalg.vector_norm(full - approx) / m
+
+
 def coreset_batch(data: dict, coreset: Coreset, m_full: int) -> dict:
     """Materialize the weighted coreset training set from a client dataset.
 
@@ -142,7 +159,7 @@ class FedCoreConfig:
     # card, plain PyTorch on the CPU; False on the card is the A/B
     use_kernel: Optional[bool] = None
     max_sweeps: int = 50
-    projection_dim: Optional[int] = None  # JL projection: not ported yet
+    projection_dim: Optional[int] = None  # JL projection (§Perf H3)
     # Alg. 1 drop path for clients that cannot meet τ even with the §4.4
     # minimal plan (coreset of 1, one partial epoch).  Default False:
     # train the minimal plan and mark ClientResult.deadline_violated.

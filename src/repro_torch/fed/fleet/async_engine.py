@@ -46,9 +46,12 @@ reproduces K sequential ``FedAsync.apply`` calls with those staleness
 values.  No step of a flush writes into a tensor it was given: pinned
 snapshots stay valid for every later group that trains from them.
 
-Not ported yet, each raising ``NotImplementedError``:
-``engine="sharded"`` (ROADMAP item 15), ``checkpoint_dir``,
-``checkpoint_every`` and ``resume`` (item 13).
+Checkpoints are taken between flush windows, never on a partial flush:
+the params and every pinned dispatch snapshot in one npz, the virtual
+clock, buffers, logs, counters, RNG and scheduler state in its JSON
+meta, so a resumed run replays the continuation wave and every later
+event byte for byte.  Not ported yet: ``engine="sharded"`` (ROADMAP item
+15), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -60,12 +63,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import (load_server_meta, load_server_state,
+                                    save_server_state)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fed.aggregators import (ROBUST_METHODS, DelayedGradient,
                                          FedAsync, FedBuff, RobustAggregate,
                                          robust_combine)
 from repro_torch.fed.cost import resolve_cost
-from repro_torch.fed.events import COMPLETE, DISPATCH, EventQueue
+from repro_torch.fed.events import COMPLETE, DISPATCH, Event, EventQueue
 from repro_torch.fed.fleet.batched import (FleetConfig, FleetEngine,
                                            _floor_pow4, make_cohort_groups,
                                            weighted_param_sum)
@@ -345,19 +350,20 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
     event_log, telemetry) plus fleet accounting (group dispatch counts,
     buffer occupancy).
 
-    Not ported yet, each raising ``NotImplementedError``:
-    ``engine="sharded"`` (ROADMAP item 15), ``checkpoint_dir``,
-    ``checkpoint_every`` and ``resume`` (item 13)."""
+    ``checkpoint_dir`` + ``checkpoint_every`` snapshot the whole event
+    loop every N applied flushes (``save_checkpoint``); ``resume=True``
+    restores the latest snapshot, its tensors on this run's device, and
+    continues byte for byte as the uninterrupted run: the same params,
+    history and event log.
+
+    Not ported yet: ``engine="sharded"`` (ROADMAP item 15), which raises
+    ``NotImplementedError``."""
     if engine == "sharded":
         raise NotImplementedError(
             "the sharded fleet engine is not ported yet: ROADMAP item 15")
     if engine not in ("batched", "loop"):
         raise ValueError(f"unknown async fleet engine {engine!r} "
                          f"(expected batched | loop)")
-    if checkpoint_dir is not None or checkpoint_every or resume:
-        raise NotImplementedError(
-            "async fleet checkpoint / resume is not ported yet: ROADMAP "
-            "item 13")
     wall0 = _time.perf_counter()
     n = len(specs)
     if n == 0:
@@ -638,6 +644,12 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
         rec_start = t
         rec_wall0 = _time.perf_counter()
         rec_dropped = 0
+        # snapshot *between* windows: the flush is fully accounted and
+        # the continuation wave has not fired yet, so a resumed run
+        # replays the wave and the next window byte for byte
+        if (checkpoint_dir is not None and checkpoint_every > 0
+                and not partial and applied % checkpoint_every == 0):
+            save_checkpoint(t)
         if applied < cfg.max_updates and not partial:
             # the run continues: open the next flush window
             round_span = obs.span_begin("round", round=len(history))
@@ -648,7 +660,95 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
             # terminal flush: no trailing sliver of a window
             round_span = fill_span = None
 
-    # open the first flush window: round 0 at t = 0
+    def save_checkpoint(t: float) -> None:
+        """Snapshot the complete event-loop state.
+
+        The params and every pinned dispatch snapshot go into one npz
+        tree; the virtual clock (the queue's heap and push sequence),
+        pending and buffered contributions, logs, counters, refcounts,
+        dispatch cursors, the numpy RNG's bit-generator state and the
+        scheduler's state go into the JSON meta.  Nothing of torch is in
+        the meta: the clock's times and durations are Python floats."""
+        with obs.span("checkpoint", round=len(history)):
+            tree = {"params": params,
+                    "versions": {str(v): slot[0]
+                                 for v, slot in params_by_version.items()}}
+            meta = {
+                "kind": "async_fleet",
+                "version": version, "applied": applied, "now": float(t),
+                "merged_total": merged_total,
+                "violations_total": violations_total,
+                "partial_flushes": partial_flushes,
+                "dropped_total": dropped_total,
+                "corrupted_total": corrupted_total,
+                "rec_start": float(rec_start),
+                "seq": int(queue._seq),
+                "heap": [[float(ht), int(hs), he.kind, int(he.cid),
+                          int(he.version), float(he.duration)]
+                         for ht, hs, he in queue._heap],
+                "event_log": list(event_log),
+                "history": [dataclasses.asdict(r) for r in history],
+                "staleness_log": [int(x) for x in staleness_log],
+                "occupancy_log": [int(x) for x in occupancy_log],
+                "busy": busy.tolist(),
+                "busy_time": busy_time.tolist(),
+                "pending": {str(cid): dataclasses.asdict(e)
+                            for cid, e in pending.items()},
+                "buffer": [dataclasses.asdict(e) for e in buffer],
+                "refcounts": {str(v): int(slot[1])
+                              for v, slot in params_by_version.items()},
+                "dispatch_counts": tracei.counts.tolist(),
+                "rng_state": rng.bit_generator.state,
+            }
+            if scheduler is not None and hasattr(scheduler, "state_dict"):
+                meta["scheduler"] = scheduler.state_dict()
+            save_server_state(checkpoint_dir, applied, tree, extra=meta)
+
+    if resume and checkpoint_dir is not None:
+        tree, _ = load_server_state(checkpoint_dir, device=dev)
+        meta = load_server_meta(checkpoint_dir)
+        if tree is not None and meta is not None \
+                and meta.get("kind") == "async_fleet":
+            params = tree["params"]
+            refc = meta["refcounts"]
+            params_by_version = {int(v): [pv, int(refc[v])]
+                                 for v, pv in tree["versions"].items()}
+            version = int(meta["version"])
+            applied = int(meta["applied"])
+            now = float(meta["now"])
+            merged_total = int(meta["merged_total"])
+            violations_total = int(meta["violations_total"])
+            partial_flushes = int(meta["partial_flushes"])
+            dropped_total = int(meta["dropped_total"])
+            corrupted_total = int(meta["corrupted_total"])
+            rec_start = float(meta["rec_start"])
+            event_log[:] = [str(s) for s in meta["event_log"]]
+            history[:] = [RoundRecord(**h) for h in meta["history"]]
+            staleness_log[:] = [int(x) for x in meta["staleness_log"]]
+            occupancy_log[:] = [int(x) for x in meta["occupancy_log"]]
+            busy[:] = np.asarray(meta["busy"], bool)
+            busy_time[:] = np.asarray(meta["busy_time"], np.float64)
+            pending.clear()
+            pending.update({int(k): _Buffered(**v)
+                            for k, v in meta["pending"].items()})
+            buffer[:] = [_Buffered(**v) for v in meta["buffer"]]
+            # the saved heap list already holds the heap invariant
+            queue._heap[:] = [
+                (ht, hs, Event(ht, hs, kind, int(cid), int(ver), dur))
+                for ht, hs, kind, cid, ver, dur in meta["heap"]]
+            queue._seq = int(meta["seq"])
+            tracei.counts[:] = np.asarray(meta["dispatch_counts"], np.int64)
+            rng.bit_generator.state = meta["rng_state"]
+            if (scheduler is not None and "scheduler" in meta
+                    and hasattr(scheduler, "load_state_dict")):
+                scheduler.load_state_dict(meta["scheduler"])
+            obs.event("resume", runtime="async_fleet", round=len(history),
+                      applied=applied, checkpoint_dir=str(checkpoint_dir))
+
+    # open the first flush window.  On a fresh start this is round 0 at
+    # t = 0; on resume it replays the continuation ``merge_buffer`` would
+    # have run after the checkpointed flush (the same wave, the same RNG
+    # draw, the same event sequence numbers)
     round_span = obs.span_begin("round", round=len(history))
     with obs.span("dispatch_wave", round=len(history)):
         dispatch_wave(now)

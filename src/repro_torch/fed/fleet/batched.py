@@ -31,9 +31,8 @@ The JAX package compiles each group into one jitted program with donated
 buffers; PyTorch runs eagerly and has no counterpart of either, so
 ``dispatch_count`` counts one dispatch per group (one per step on the
 loop path) as the reference does, and its program-cache counters have no
-counterpart here.  Not ported yet, each raising ``NotImplementedError``:
-``checkpoint_dir`` / ``resume`` (ROADMAP item 13) and
-``engine="sharded"`` (item 15).
+counterpart here.  Not ported yet: ``engine="sharded"`` (ROADMAP item
+15), which raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -45,6 +44,8 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch.checkpoint import (load_server_meta, load_server_state,
+                                    save_server_state)
 from repro_torch.core.coreset import build_coreset_batched
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fed.cost import resolve_cost
@@ -580,9 +581,16 @@ def run_fleet(model, clients_data: Sequence[ClientData],
     injection never shifts another client's per-(client, dispatch)
     draws.
 
-    Not ported yet, each raising ``NotImplementedError``:
-    ``engine="sharded"`` (ROADMAP item 15), ``checkpoint_dir``,
-    ``checkpoint_every`` and ``resume`` (item 13).
+    ``checkpoint_dir`` + ``checkpoint_every`` save the server state
+    (params, round index, the scheduler's EWMA and RNG state, the
+    dispatch cursors, the history) every N rounds through
+    ``repro_torch.checkpoint``; ``resume=True`` restores the latest
+    checkpoint, its params on this run's device, and continues byte for
+    byte as the uninterrupted run: everything else (capability trace,
+    fault draws, cohort grouping) is a pure function of the seed.
+
+    Not ported yet: ``engine="sharded"`` (ROADMAP item 15), which raises
+    ``NotImplementedError``.
     """
     if engine == "sharded":
         raise NotImplementedError(
@@ -590,9 +598,6 @@ def run_fleet(model, clients_data: Sequence[ClientData],
     if engine not in ("batched", "loop"):
         raise ValueError(f"unknown fleet engine {engine!r} "
                          f"(expected batched | loop)")
-    if checkpoint_dir is not None or checkpoint_every or resume:
-        raise NotImplementedError(
-            "fleet checkpoint / resume is not ported yet: ROADMAP item 13")
     dev = resolve_device(device)
     eng = FleetEngine(model, cfg, device=dev)
     if init_params is None:
@@ -620,7 +625,24 @@ def run_fleet(model, clients_data: Sequence[ClientData],
 
     history: List[RoundRecord] = []
     cohort_sizes: List[int] = []
-    for r in range(rounds):
+    start_round = 0
+    if resume and checkpoint_dir is not None:
+        ck_params, ck_round = load_server_state(checkpoint_dir, like=params)
+        if ck_params is not None and ck_round >= 0:
+            meta = load_server_meta(checkpoint_dir) or {}
+            params = ck_params
+            start_round = ck_round + 1
+            history = [RoundRecord(**h) for h in meta.get("history", [])]
+            cohort_sizes = [int(c) for c in meta.get("cohort_sizes", [])]
+            if "dispatch_counts" in meta:
+                tracei.counts[:] = np.asarray(meta["dispatch_counts"],
+                                              np.int64)
+            if scheduler is not None and meta.get("scheduler") is not None \
+                    and hasattr(scheduler, "load_state_dict"):
+                scheduler.load_state_dict(meta["scheduler"])
+            obs.event("resume", round=start_round,
+                      checkpoint_dir=checkpoint_dir)
+    for r in range(start_round, rounds):
         t0 = time.perf_counter()
         rspan = obs.span_begin("round", round=r)
         with obs.span("cohort_select", round=r):
@@ -696,14 +718,13 @@ def run_fleet(model, clients_data: Sequence[ClientData],
         history.append(rec)
         cohort_sizes.append(len(cohort))
         obs.span_end(rspan)
-        rec.wall_time = time.perf_counter() - t0
         obs.event("round", runtime="fleet", engine=engine,
                   label=f"fleet/{engine}", round=r,
                   n_participants=len(cohort), n_dropped=n_fault_dropped,
                   n_corrupted=n_corrupted,
                   n_coreset=rec.n_coreset, n_violations=n_violations,
                   sim_round_time=float(rec.sim_round_time),
-                  wall_time_s=rec.wall_time,
+                  wall_time_s=time.perf_counter() - t0,
                   train_loss=float(train_loss),
                   test_acc=float(rec.test_acc),
                   test_loss=float(rec.test_loss))
@@ -712,6 +733,19 @@ def run_fleet(model, clients_data: Sequence[ClientData],
                   durations=[float(d) for d in durations],
                   violated=[bool(d > deadline * (1.0 + 1e-9))
                             for d in durations])
+        if checkpoint_dir is not None and checkpoint_every > 0 \
+                and (r + 1) % checkpoint_every == 0:
+            with obs.span("checkpoint", round=r):
+                extra = {
+                    "kind": "fleet",
+                    "history": [dataclasses.asdict(h) for h in history],
+                    "cohort_sizes": cohort_sizes,
+                    "dispatch_counts": tracei.counts.tolist(),
+                }
+                if scheduler is not None and hasattr(scheduler,
+                                                     "state_dict"):
+                    extra["scheduler"] = scheduler.state_dict()
+                save_server_state(checkpoint_dir, r, params, extra=extra)
 
     return {
         "params": params,

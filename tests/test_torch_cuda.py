@@ -533,6 +533,103 @@ def test_short_async_fleet_run_matches_its_plain_twin(cuda):
         assert torch.equal(v, plain["params"][k]), k
 
 
+def _records(history):
+    import dataclasses
+    import json
+
+    return json.dumps([dataclasses.asdict(h) for h in history])
+
+
+def test_fleet_and_async_fleet_resume_on_the_card(cuda, tmp_path):
+    """Checkpointed, cut and resumed runs of both fleet engines on the CNN
+    workload end as the uninterrupted runs: bit-identical parameters on
+    the card, equal histories and event log; the resumed parts go
+    through the fleet's selection kernels."""
+    import dataclasses
+
+    from repro_torch.fed.fleet import (AsyncFleetConfig, FleetConfig,
+                                       get_workload, run_async_fleet,
+                                       run_fleet)
+    from repro_torch.fed.simulator import make_client_specs
+
+    wl = get_workload("cnn")
+    clients = wl.make_clients(n_clients=24, seed=0, mean_samples=120.0,
+                              std_samples=90.0)
+    specs = make_client_specs([len(d["y"]) for d in clients],
+                              np.random.default_rng(0))
+    cfg = FleetConfig(epochs=2, batch_size=8, lr=0.05)
+    acfg = AsyncFleetConfig(max_updates=3, buffer_k=12, concurrency=24,
+                            epochs=2, batch_size=8, lr=0.05,
+                            straggler_pct=50.0)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        full = run_fleet(wl, clients, specs, cfg, 3, straggler_pct=50.0)
+        d = str(tmp_path / "fleet")
+        run_fleet(wl, clients, specs, cfg, 2, straggler_pct=50.0,
+                  checkpoint_dir=d, checkpoint_every=1)
+        ops.reset_launch_counts()
+        res = run_fleet(wl, clients, specs, cfg, 3, straggler_pct=50.0,
+                        checkpoint_dir=d, resume=True)
+        launches = dict(ops.LAUNCHES)
+        afull = run_async_fleet(wl, clients, specs, acfg)
+        d = str(tmp_path / "async_fleet")
+        run_async_fleet(wl, clients, specs,
+                        dataclasses.replace(acfg, max_updates=1),
+                        checkpoint_dir=d, checkpoint_every=1)
+        ares = run_async_fleet(wl, clients, specs, acfg, checkpoint_dir=d,
+                               resume=True)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    assert [h.round for h in res["history"]] == [0, 1, 2]
+    assert _records(res["history"]) == _records(full["history"])
+    assert sum(launches[k] for k in ("pairwise_l2_batched",
+                                     "build_cost_from_feats")) > 0, launches
+    assert ares["event_log"] == afull["event_log"]
+    assert _records(ares["history"]) == _records(afull["history"])
+    for want, got in ((full, res), (afull, ares)):
+        for k, v in want["params"].items():
+            assert got["params"][k].device.type == "cuda"
+            assert torch.equal(v, got["params"][k]), k
+
+
+def test_projected_coreset_kernels_match_plain(cuda):
+    """``build_coreset(projection_dim=256)`` on the card (kernels 1-3 at
+    F' = 256) against its plain twin: the same coreset; the card projects
+    with the CPU's matrix; exact per-sample gradients on the card within
+    1e-5 of the CPU's."""
+    from repro_torch.core import (build_coreset, coreset_epsilon,
+                                  true_per_sample_grads)
+    from repro_torch.core.gradients import jl_matrix
+    from repro_torch.models import SmallCNN
+
+    g = torch.Generator(device="cpu").manual_seed(7)
+    feats = torch.randn(341, 1568, generator=g).to(cuda)
+    ops.reset_launch_counts()
+    got = build_coreset(feats, 24, projection_dim=256)
+    torch.cuda.synchronize()
+    for name in ("pairwise_l2", "build_cost", "delta_sweep"):
+        assert ops.LAUNCHES[name] > 0, ops.LAUNCHES
+    plain = build_coreset(feats, 24, projection_dim=256, use_kernel=False)
+    assert torch.equal(got.indices, plain.indices)
+    assert torch.equal(got.weights, plain.weights)
+    assert torch.equal(jl_matrix(1568, 256, 0, torch.float32, cuda).cpu(),
+                       jl_matrix(1568, 256, 0, torch.float32,
+                                 torch.device("cpu")))
+
+    model = SmallCNN(image_size=8, channels=(4, 8))
+    params = model.init(torch.Generator().manual_seed(0), cuda)
+    data = {"x": torch.randn(40, 8, 8, generator=g).numpy(),
+            "y": torch.randint(0, 10, (40,), generator=g).numpy()}
+    gpu = true_per_sample_grads(model.loss, params, data, batch_size=16)
+    cpu = true_per_sample_grads(
+        model.loss, {k: v.cpu() for k, v in params.items()}, data,
+        batch_size=16)
+    np.testing.assert_allclose(gpu, cpu, rtol=0, atol=1e-5)
+    cs = build_coreset(torch.as_tensor(gpu, device=cuda), 40)
+    assert float(coreset_epsilon(gpu, cs)) < 1e-6
+
+
 # ---------------------------------------------------------------------------
 # kernel 7: flash attention, its gradient under vmap, and a translm fleet
 # ---------------------------------------------------------------------------

@@ -23,8 +23,9 @@ distance-free kernels.
 Also here: the cohort grouping, the nominal budgets and the adaptive
 scheduler's select / budget sequences, which must equal the reference's
 exactly, the port's JSONL passing the reference's schema, a fault
-profile and a robust aggregator against the reference, and the arguments
-that are not ported yet raising ``NotImplementedError``.
+profile and a robust aggregator against the reference, the sharded
+engine (not ported yet) raising ``NotImplementedError``, and the
+checkpoint arguments at work.
 """
 import numpy as np
 import pytest
@@ -41,6 +42,7 @@ from repro.fed.fleet import workloads as jw  # noqa: E402
 from repro.fed.simulator import make_client_specs  # noqa: E402
 from repro.obs.schema import validate_records  # noqa: E402
 import repro_torch.fed.fleet.batched as tb  # noqa: E402
+from repro_torch.checkpoint import latest_checkpoint  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.fed.fleet import (  # noqa: E402
     AdaptiveParticipation, AsyncFleetConfig, FleetConfig,
@@ -267,40 +269,50 @@ def test_port_fleet_jsonl_passes_reference_schema():
         [h.n_coreset for h in out["history"]]
 
 
-def test_not_ported_arguments_raise():
+def test_not_ported_arguments_raise(tmp_path):
+    """``engine="sharded"`` raises (ROADMAP item 15); the checkpoint
+    arguments work: a checkpoint file appears and ``resume`` continues
+    from it."""
     _, train, _, specs, _ = _bundle("mlp")
     wl = get_workload("mlp")
     tspecs = [ClientSpec(s.cid, s.m, s.c) for s in specs]
     cfg = FleetConfig(**CFG)
 
-    def run(cfg=cfg, **kwargs):
-        return run_fleet(wl, train, tspecs, cfg, 1, device="cpu", **kwargs)
+    def run(cfg=cfg, rounds=1, **kwargs):
+        return run_fleet(wl, train, tspecs, cfg, rounds, device="cpu",
+                         **kwargs)
 
     with pytest.raises(NotImplementedError, match="item 15"):
         run(engine="sharded")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run(checkpoint_dir="ckpt", checkpoint_every=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run(checkpoint_every=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run(resume=True)
+    d = str(tmp_path / "fleet")
+    run(checkpoint_dir=d, checkpoint_every=1)
+    assert latest_checkpoint(d).endswith("ckpt_000000.npz")
+    assert [h.round for h in run(checkpoint_every=1)["history"]] == [0]
+    assert [h.round for h in run(resume=True)["history"]] == [0]
+    resumed = run(rounds=2, checkpoint_dir=d, resume=True)
+    assert [h.round for h in resumed["history"]] == [0, 1]
     with pytest.raises(ValueError, match="unknown fleet engine"):
         run(engine="async")
     with pytest.raises(ValueError, match="unknown fleet aggregator"):
         run(cfg=FleetConfig(aggregator="mean", **CFG))
 
-    def run_async(**kwargs):
-        return run_async_fleet(wl, train, tspecs, AsyncFleetConfig(),
-                               device="cpu", **kwargs)
+    def run_async(max_updates=1, **kwargs):
+        return run_async_fleet(
+            wl, train, tspecs,
+            AsyncFleetConfig(max_updates=max_updates, buffer_k=2,
+                             concurrency=3, epochs=1),
+            device="cpu", **kwargs)
 
     with pytest.raises(NotImplementedError, match="item 15"):
         run_async(engine="sharded")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_async(checkpoint_dir="ckpt", checkpoint_every=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_async(checkpoint_every=1)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        run_async(resume=True)
+    d = str(tmp_path / "async_fleet")
+    run_async(checkpoint_dir=d, checkpoint_every=1)
+    assert latest_checkpoint(d).endswith("ckpt_000001.npz")
+    assert run_async(checkpoint_every=1)["applied"] == 1
+    assert run_async(resume=True)["applied"] == 1
+    resumed = run_async(max_updates=2, checkpoint_dir=d, resume=True)
+    assert resumed["applied"] == 2
+    assert [h.round for h in resumed["history"]] == [0, 1]
     with pytest.raises(ValueError, match="unknown async fleet engine"):
         run_async(engine="async")
     with pytest.raises(ValueError, match="at least one client"):

@@ -58,7 +58,7 @@ def test_importing_the_async_fleet_engine_loads_no_jax():
 
 
 # public names of the JAX package's that belong to open ROADMAP items:
-# workload_cost_model (item 19), the sharded engine and its module (item
+# workload_cost_model (item 19b), the sharded engine and its module (item
 # 15)
 OPEN_ITEM_NAMES = {"fed": {"workload_cost_model"},
                    "fed.fleet": {"ShardedFleetEngine", "client_mesh",

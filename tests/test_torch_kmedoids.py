@@ -17,6 +17,7 @@ import torch  # noqa: E402
 from repro.core import coreset as jcoreset  # noqa: E402
 from repro.core import kmedoids as jk  # noqa: E402
 from repro_torch.core import coreset as tcoreset  # noqa: E402
+from repro_torch.core import gradients as tgradients  # noqa: E402
 from repro_torch.core import kmedoids as tk  # noqa: E402
 
 torch.set_num_threads(1)
@@ -119,5 +120,13 @@ def test_build_coreset_matches_reference_and_numpy_backend():
                                   np.asarray(want.weights))
     assert got.weights.dtype == torch.float32
     assert float(got.weights.sum()) == 45.0
-    with pytest.raises(NotImplementedError):
-        tcoreset.build_coreset(torch.as_tensor(x), 6, projection_dim=4)
+    # projection_dim projects the features first (JL, F = 8 -> 4), and is
+    # a no-op at F or above
+    proj = tcoreset.build_coreset(torch.as_tensor(x), 6, projection_dim=4)
+    want_proj = tcoreset.build_coreset(
+        tgradients.project_features(torch.as_tensor(x), 4), 6)
+    np.testing.assert_array_equal(proj.indices.numpy(),
+                                  want_proj.indices.numpy())
+    assert float(proj.weights.sum()) == 45.0
+    same = tcoreset.build_coreset(torch.as_tensor(x), 6, projection_dim=8)
+    np.testing.assert_array_equal(same.indices.numpy(), got.indices.numpy())
