@@ -177,18 +177,52 @@ phases run in order and any failure exits non-zero:
     with m >= 160 at phase 3's final params: ``true_per_sample_grads``
     of the whole SmallCNN (P = 28,938), ε of a budget-24 coreset at F'
     = 1568, 256, 64 and 16 with each selection's wall, and ε at the
-    full budget below 1e-5 of ‖Σg‖/m.
+    full budget below 1e-5 of ‖Σg‖/m;
+16. the dense LM path, serving: yi-9b at its published widths and full
+    depth (48 layers, d_model 4096, 32 q heads, 4 kv heads, d_ff 11008,
+    vocab 64000; 8.8 B fp32 parameters drawn on the card from a seed,
+    after checking that 40 GiB of the card are free) through
+    ``repro_torch.launch.serve.generate``: batch 4, prompt 16, 32 greedy
+    tokens, the prompt prefilled token by token through the KV-cache
+    decode; the launch counts are set to 0 just before and read just
+    after (kernel 8 97 times a decode step, kernel 7 never); the wall,
+    tokens/s and one decode step's idle share; its plain twin
+    (``Model(use_kernel=False)``: the plain RMSNorm) gives the same
+    tokens and bit-identical logits at every step; the first generated
+    token is the argmax of ``Model.forward``'s last logits (or, where
+    the top two are within 1e-5, a logit within 1e-5 of the max);
+17. the dense LM path, prefill: the same model, one 4,096-token sequence
+    through ``Model.forward`` without gradients, attention through
+    kernel 7 (48 launches, 97 of kernel 8); the wall, the card's busy
+    time and kernel 7's share of it; its plain twin (``impl="kernel"``
+    with ``use_kernel=False``) bit-identical, and ``impl="chunked"``
+    within 1e-4·max|logits|;
+18. the dense LM path, training, at yi-9b's widths cut to 2 layers
+    (0.87 B parameters): (a) ``train_centralized``, 20 Adam steps under
+    the warmup-cosine schedule, gradients clipped to norm 1, batch 8 of
+    128 tokens; the loss must fall, and the checkpoint must load back
+    bit for bit; (b) ``train_fedcore_lm``, 2 rounds of 4 silos of 64
+    sequences (8 steps of batch 8, seq 128), 30 % stragglers: the
+    stragglers select on the card through kernels 1-3 at F = 4096, every
+    round meets its deadline, and the plain twin (``use_kernel=False``
+    for selection, attention and norms) picks equal coresets and gives
+    equal losses and bit-identical parameters.
 
 Phases 1-2 run alone.  Phases 3-7 and 12-15 (the sync and async runtimes
 and the CNN fleet), 8-9 (the ``translm`` fleet) and 10-11 (the ``xlstm``
-fleet) share no state, and each group is host-bound (the card idles most of each round),
-so they run as three concurrent processes on the one card, each a
-*lane* (``python3 chip_smoke.py --lane NAME``, started by the script
-itself): a lane sets its own launch counts to 0 around its main path,
-writes its launch counts and phase seconds to ``build/chip_smoke/``, and
-its output is printed in phase order once every lane has ended.  Round
-walls, idle shares and step times of phases 3-15 are therefore taken
-with the other two lanes running.  A lane that fails stops the others;
+fleet) share no state, and each group is host-bound (the card idles most
+of each round), so they run as three concurrent processes on the one
+card, each a *lane* (``python3 chip_smoke.py --lane NAME``, started by
+the script itself): a lane sets its own launch counts to 0 around its
+main path, writes its launch counts and phase seconds to
+``build/chip_smoke/``, and its output is printed in phase order once
+every lane has ended.  Round walls, idle shares and step times of
+phases 3-15 are therefore taken with the other two lanes running.
+Phases 16-18 (the dense LM) then run as a fourth lane, ``lm``, alone:
+its prefill keeps the card busy for seconds at a time, and the card's
+time slicing between processes would stretch every wait of the
+host-bound lanes (beside them on an H100 it made phase 5 2.3x slower).  A
+lane that fails stops the others;
 lanes still running ``LANE_DEADLINE_S`` seconds after the start are
 stopped and the script fails with what they printed so far.
 
@@ -211,8 +245,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 LANE_DIR = ROOT / "build" / "chip_smoke"
-# the lanes of phases 3-15, run concurrently (see the module docstring)
+# the lanes of phases 3-15, run concurrently, then the lane of phases
+# 16-18 alone (see the module docstring)
 LANES = ("sync_cnn", "translm", "xlstm")
+LM_LANES = ("lm",)
 # lanes still running this long after the start are stopped: the whole
 # script must end within 1200 s
 LANE_DEADLINE_S = 1140.0
@@ -224,6 +260,7 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12      # dense tensor-core rate, the bound of bf16 work
 PEAK_BYTES_PER_S = 3.35e12
 RTOL = 1e-5
+PROFILER_TRIES = 3      # profiler sessions per timed call (see profiled_calls)
 # the bf16 flash attention's check (``bf16_attention_rule``): within
 # rtol = atol = BF16_ATTN_TOL of its plain version (the JAX kernel tests'
 # bf16 tolerance), and its max and mean error against a float64 oracle
@@ -256,7 +293,7 @@ HEADLINE = {"pairwise_l2": (2048, 1568), "build_cost": (1, 2048),
             "pairwise_l2_batched": (16, 128, 1568),
             "build_cost_from_feats": (1, 2048, 1568),
             "delta_sweep_from_feats": (1, 2048, 1568, 130),
-            "flash_attention": "translm step", "rmsnorm": "yi-9b fp32"}
+            "flash_attention": "yi-9b fp32", "rmsnorm": "yi-9b fp32"}
 # the kernels whose keyed phase-2 cases (the step shapes, yi-9b, the
 # pairwise and distance-free kernels' main-path shapes) are all timed by
 # the card's busy time, not their headline alone, and their library call
@@ -270,7 +307,7 @@ PATH_OF = {"pairwise_l2": "sync", "build_cost": "sync",
            "delta_sweep": "sync", "pairwise_l2_batched": "fleet",
            "build_cost_from_feats": "fleet",
            "delta_sweep_from_feats": "fleet",
-           "flash_attention": "fleet_translm", "rmsnorm": "fleet_xlstm"}
+           "flash_attention": "lm_prefill", "rmsnorm": "lm_prefill"}
 # the kernels each main path must launch
 SYNC_KERNELS = ("pairwise_l2", "build_cost", "delta_sweep")
 FLEET_KERNELS = ("pairwise_l2_batched", "build_cost_from_feats",
@@ -289,6 +326,19 @@ PARAMS_ATOL_XLSTM = 1e-5
 XLSTM_AB_ROUNDS = 1
 XLSTM_LOOP_EVERY = 5
 XLSTM_SCENARIO_ROUNDS = 2
+# phases 16-18: the dense LM at yi-9b's published widths; phase 18 cuts
+# its depth (the only cut) to 2 layers, so that weights, gradients and
+# Adam's state (~13 GiB) fit beside the other lanes in the script's time
+LM_ARCH = "yi-9b"
+LM_MIN_FREE_GIB = 40.0
+LM_SERVE = dict(batch=4, prompt_len=16, gen=32)
+LM_PREFILL_S = 4096
+LM_TRAIN_DEPTH = 2
+LM_TRAIN = dict(steps=20, batch=8, seq=128, lr=3e-4)
+LM_FEDCORE = dict(rounds=2, steps_per_epoch=8, silos=4, batch=8, seq=128,
+                  lr=3e-4, straggler_pct=30.0, seed=0)
+# the near-tie rule of phase 16's first token against the forward's argmax
+LM_TIE = 1e-5
 # (c)'s local epochs: at phase 10's E = 5 the exponential gating makes a
 # round's result move far beyond 1e-5 under a 1-ulp change of its inputs
 # (the loop and batched engines differ in the matrix products' rounding,
@@ -392,8 +442,10 @@ def kernel_cases(dev, attn_shapes, pairwise_groups, from_feats_groups,
     cases = []
     # (341, 1568) and (39, 1568): the sync path's largest and median
     # sampled client (mnist_like_dataset(200, seed=0) sizes 10-341)
+    # (64, 4096): phase 18's FedCore-for-LM silo of 64 sequences at
+    # yi-9b's width
     for m, d in ((37, 60), (39, 1568), (341, 1568), (1000, 1568),
-                 (2048, 1568), (2048, 128)):
+                 (2048, 1568), (2048, 128), (64, 4096)):
         x = torch.randn(m, d, generator=g, device=dev)
 
         def run(uk, x=x):
@@ -635,22 +687,23 @@ def kmedoids_cases(dev, groups):
     return cases
 
 
-def sync_cases(dev, shapes):
-    """Kernels 2 and 3 at the sync path's own shapes: ``shapes`` holds
-    the (M, k) of phase 3's solves; kernel 2 at each M, kernel 3 at each
-    (M, k) with a one-hot H."""
+def sync_cases(dev, shapes, path="sync"):
+    """Kernels 2 and 3 at a D-input path's own shapes: ``shapes`` holds
+    the (M, k) of its solves (phase 3's, or phase 18's with ``path``
+    "lm"); kernel 2 at each M, kernel 3 at each (M, k) with a one-hot
+    H."""
     import torch
 
     g = torch.Generator(device=dev).manual_seed(3)
     cases = []
     for m in sorted({m for m, _ in shapes}):
         D, d1, _, vf = sweep_inputs(g, 1, m, dev)
-        cases.append(build_cost_case(f"C=1 M={m} (sync)", (1, m, "sync"),
+        cases.append(build_cost_case(f"C=1 M={m} ({path})", (1, m, path),
                                      D, d1, vf))
     for m, k in sorted(set(shapes)):
         D, d1, d2, vf = sweep_inputs(g, 1, m, dev)
-        cases.append(delta_sweep_case(f"M={m} K={k} (sync)",
-                                      (m, k, "sync"), D, d1, d2, vf,
+        cases.append(delta_sweep_case(f"M={m} K={k} ({path})",
+                                      (m, k, path), D, d1, d2, vf,
                                       onehot(g, 1, m, k, dev)))
     return cases
 
@@ -688,6 +741,9 @@ def attention_cases(dev, g, attn_shapes):
     shapes += [(1, 32, 4, 4096, 128, None, dt, "yi-9b train_4k",
                 "yi-9b " + ("bf16" if dt == bf16 else "fp32"))
                for dt in (f32, bf16)]
+    # phase 18's training shape: batch 8 of 128 tokens
+    shapes += [(8, 32, 4, 128, 128, None, f32, "yi-9b, phase 18",
+                "yi-9b S=128")]
     cases = []
     for b, hq, hk, s, hd, window, dt, what, key in shapes:
         q = torch.randn(b, hq, s, hd, generator=g, device=dev).to(dt)
@@ -779,6 +835,10 @@ def rmsnorm_cases(dev, g):
     shapes += [((4096, 4096), 1, dt, "yi-9b width",
                 "yi-9b " + ("bf16" if dt == bf16 else "fp32"))
                for dt in (f32, bf16)]
+    # phase 16's decode step (B, 1, d) and phase 18's training rows
+    shapes += [((4, 1, 4096), 1, f32, "yi-9b decode, batch 4",
+                "yi-9b decode"),
+               ((8, 128, 4096), 1, f32, "yi-9b, phase 18", "yi-9b train")]
     cases = []
     for shape, gr, dt, what, key in shapes:
         d = shape[-1]
@@ -859,7 +919,7 @@ def phase_kernels(dev, cases, results=None):
             continue
         # back-to-back calls of a fast kernel time the wrapper's host
         # path; the profiler gives the card's own busy time a call
-        _, busy, by_name = device_busy_share(
+        _, busy, by_name = profiled_calls(
             lambda: [run(True) for _ in range(20)])
         dev_ms = None if busy is None else busy / 20 * 1e3
         # both pairwise entry points run pairwise_l2_kernel<...>, kernels
@@ -876,7 +936,7 @@ def phase_kernels(dev, cases, results=None):
                   f"{label}: the bf16 call ran no wgmma kernel ({ran})")
         lib_dev_ms = None
         if lib is not None and name in REDESIGNED:
-            _, lbusy, _ = device_busy_share(
+            _, lbusy, _ = profiled_calls(
                 lambda: [lib() for _ in range(20)])
             lib_dev_ms = None if lbusy is None else lbusy / 20 * 1e3
             log(f"    {key}: library device busy "
@@ -1297,6 +1357,19 @@ def device_busy_share(fn):
             cur1 = max(cur1, b)
     busy += cur1 - cur0
     return wall, busy * 1e-9, by_name
+
+
+def profiled_calls(fn):
+    """``device_busy_share(fn)``, run again while the profiler saw no
+    device activity at all (a profiling session on the card can miss
+    every event: calls whose kernels ran then read "not measured", and
+    a check on which kernels ran would fail on nothing); up to
+    ``PROFILER_TRIES`` sessions, the last one's result."""
+    for _ in range(PROFILER_TRIES):
+        res = device_busy_share(fn)
+        if res[1] is not None:
+            break
+    return res
 
 
 def stream_time_by_part(fn):
@@ -2606,6 +2679,326 @@ def phase_xlstm_ab(wl, clients, specs, cfg, kept):
         check_params(out)
 
 
+# ---------------------------------------------------------------------------
+# phases 16-18: the dense LM path (yi-9b)
+# ---------------------------------------------------------------------------
+
+def record_decode_logits(model):
+    """Keep the logits of each of ``model``'s decode steps from now on
+    (a wrapper on the instance); returns the list they are kept in."""
+    kept = []
+    inner = model.decode_step
+
+    def step(*args, **kwargs):
+        logits, state = inner(*args, **kwargs)
+        kept.append(logits)
+        return logits, state
+
+    model.decode_step = step
+    return kept
+
+
+def decode_steps(model, params, tokens, n):
+    """``n`` decode steps of ``tokens`` (B, >= n) from an empty cache."""
+    import torch
+
+    state = model.init_decode_state(params, tokens.shape[0], n,
+                                    dtype=torch.float32)
+    with torch.no_grad():
+        for t in range(n):
+            model.decode_step(params, state, tokens[:, t:t + 1], t)
+
+
+def check_lm_memory(dev):
+    """Fail with a clear message unless ``LM_MIN_FREE_GIB`` of the card's
+    memory are free for yi-9b (its fp32 weights alone are 32.9 GiB)."""
+    import torch
+
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"  card memory: {free / 2**30:.1f} GiB free of "
+        f"{total / 2**30:.1f} GiB")
+    check(free >= LM_MIN_FREE_GIB * 2**30,
+          f"only {free / 2**30:.1f} GiB of the card's memory are free; "
+          f"phases 16-17 need {LM_MIN_FREE_GIB:.0f} GiB (yi-9b's fp32 "
+          f"weights are 32.9 GiB)")
+
+
+def phase_lm_serve(dev):
+    """Phase 16; returns (model, params, launch counts of the served
+    run)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, tput_str
+    from repro_torch.models.model import Model
+
+    check_lm_memory(dev)
+    cfg = get_config(LM_ARCH)
+    model, twin = Model(cfg), Model(cfg, use_kernel=False)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n = sum(v.numel() for v in params.values())
+    log(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.d_head}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n:,} fp32 parameters "
+        f"({4 * n / 2**30:.2f} GiB) drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    b, p_len, gen = (LM_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    prompts = torch.randint(
+        0, cfg.vocab_size, (b, p_len), dtype=torch.int32, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(1))
+    decode_steps(model, params, prompts, 2)          # first calls' set-up
+    kept = record_decode_logits(model)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(model, params, prompts, gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    steps = p_len + gen
+    # the weights each step must read (all but the embedding table, of
+    # which it reads B rows) over the card's memory rate
+    w_bytes = 4 * (n - cfg.vocab_size * cfg.d_model + b * cfg.d_model)
+    log(f"  generate, batch {b}, prompt {p_len}, {gen} greedy tokens: wall "
+        f"{wall:.3f} s, {tput_str(b * gen / wall)} (batch·gen / wall, "
+        f"prefill included), {1e3 * wall / steps:.2f} ms a decode step "
+        f"(bound: its {w_bytes / 2**30:.2f} GiB of weights at 3.35 TB/s, "
+        f"{1e3 * w_bytes / PEAK_BYTES_PER_S:.2f} ms); launches {launches}")
+    check(launches["rmsnorm"] == (2 * cfg.n_layers + 1) * steps,
+          f"kernel 8 launched {launches['rmsnorm']} times in {steps} decode "
+          f"steps, not {2 * cfg.n_layers + 1} a step")
+    check(launches["flash_attention"] == 0,
+          "the decode path launched kernel 7")
+    check(tuple(out.shape) == (b, steps) and torch.equal(out[:, :p_len],
+                                                         prompts),
+          f"generate returned {tuple(out.shape)} tokens")
+    check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          "a generated token is outside the vocabulary")
+    check(len(kept) == steps and all(bool(torch.isfinite(x).all())
+                                      for x in kept),
+          "a decode step's logits are not finite")
+    del model.decode_step
+    # one decode step's idle share: 8 steps bare, then under the profiler
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    decode_steps(model, params, out, 8)
+    torch.cuda.synchronize()
+    bare = (time.perf_counter() - t0) / 8
+    pwall, busy, by_name = device_busy_share(
+        lambda: decode_steps(model, params, out, 8))
+    if busy is None:
+        log("  a decode step's device busy time: not measured")
+    else:
+        norm = sum(v for k, v in by_name.items() if "rmsnorm" in k) / 8
+        log(f"  a decode step: bare {1e3 * bare:.2f} ms, device busy "
+            f"{1e3 * busy / 8:.2f} ms (idle {100 * (1 - busy / 8 / bare):.1f}"
+            f"% of the bare step), kernel 8 {1e3 * norm:.4f} ms of it")
+
+    tkept = record_decode_logits(twin)
+    t0 = time.perf_counter()
+    tout = generate(twin, params, prompts, gen)
+    torch.cuda.synchronize()
+    log(f"  plain twin (the plain RMSNorm): wall "
+        f"{time.perf_counter() - t0:.3f} s")
+    check(torch.equal(tout, out), "the plain twin generated other tokens")
+    check(len(tkept) == len(kept) and all(torch.equal(x, y) for x, y in
+                                          zip(kept, tkept)),
+          "the plain twin's decode logits are not bit-identical")
+    with torch.no_grad():
+        logits, _, _ = model.forward(params, {"tokens": prompts})
+    last = logits[:, -1]
+    top2 = torch.topk(last, 2, dim=-1).values
+    first = out[:, p_len].long()
+    chosen = last.gather(1, first[:, None])[:, 0]
+    gap = float((top2[:, 0] - chosen).max())
+    log(f"  first token {first.tolist()}, forward's argmax "
+        f"{last.argmax(-1).tolist()}; chosen logit within {gap:.3e} of the "
+        f"max, top-2 gaps {(top2[:, 0] - top2[:, 1]).tolist()}; the last "
+        f"prompt step's decode logits against the forward's: max abs "
+        f"{float((kept[p_len - 1][:, 0] - last).abs().max()):.3e}")
+    for r in range(b):
+        if int(first[r]) != int(last[r].argmax()):
+            check(float(top2[r, 0] - top2[r, 1]) <= LM_TIE
+                  and float(top2[r, 0] - chosen[r]) <= LM_TIE,
+                  f"row {r}: the first generated token is not the "
+                  f"forward's argmax and no near-tie ({LM_TIE:g}) explains "
+                  f"it")
+    return model, params, launches
+
+
+def phase_lm_prefill(dev, model, params):
+    """Phase 17; returns the launch counts of the kernel forward."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    twin = Model(cfg, use_kernel=False)
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_PREFILL_S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    batch = {"tokens": toks}
+    s = LM_PREFILL_S
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _, hidden = model.forward(params, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        # matrix products: 2 operations a weight and token (the embedding
+        # table is read, not multiplied, unless tied); attention: 4·hd a
+        # visible (q, k) pair and q head
+        mm = sum(v.numel() for k, v in params.items()
+                 if k.startswith("layers.") and v.dim() == 3)
+        mm += cfg.vocab_size * cfg.d_model
+        ops_n = 2.0 * mm * s + 4.0 * cfg.d_head * s * (s + 1) / 2 \
+            * cfg.n_heads * cfg.n_layers
+        log(f"  forward, 1 x {s} tokens, impl=None -> "
+            f"{model.resolve_impl(None, toks.device)!r}: wall {wall:.3f} s, "
+            f"{ops_n / wall / 1e12:.1f} TFLOP/s (bound "
+            f"{1e3 * ops_n / PEAK_FP32_FLOPS:.0f} ms at the fp32 peak; "
+            f"TF32 off); launches {launches}")
+        check(launches["flash_attention"] == cfg.n_layers,
+              f"kernel 7 launched {launches['flash_attention']} times, not "
+              f"once a layer")
+        check(launches["rmsnorm"] == 2 * cfg.n_layers + 1,
+              f"kernel 8 launched {launches['rmsnorm']} times, not "
+              f"{2 * cfg.n_layers + 1}")
+        check(tuple(logits.shape) == (1, s, cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"prefill logits {tuple(logits.shape)} not finite")
+        pwall, busy, by_name = device_busy_share(
+            lambda: model.forward(params, batch))
+        if busy is None:
+            log("  device busy time: not measured")
+        else:
+            fa = sum(v for k, v in by_name.items() if "flash_attention" in k)
+            norm = sum(v for k, v in by_name.items() if "rmsnorm" in k)
+            log(f"  under torch.profiler (wall {pwall:.3f} s): busy "
+                f"{busy:.3f} s, idle {100 * (1 - busy / wall):.1f}% of the "
+                f"bare wall ({100 * (1 - busy / pwall):.1f}% of the "
+                f"profiled one); kernel 7 {fa:.3f} s "
+                f"({100 * fa / busy:.1f}% of the busy time, "
+                f"{1e3 * fa / cfg.n_layers:.3f} ms a layer), kernel 8 "
+                f"{1e3 * norm:.3f} ms")
+            check(fa > 0, "the profiled prefill ran no kernel 7")
+        t0 = time.perf_counter()
+        plain, _, _ = twin.forward(params, batch, impl="kernel")
+        torch.cuda.synchronize()
+        log(f"  plain twin (the kernels' plain versions): wall "
+            f"{time.perf_counter() - t0:.3f} s; bit-identical "
+            f"{torch.equal(plain, logits)}")
+        check(torch.equal(plain, logits),
+              "the plain twin's prefill logits are not bit-identical: max "
+              f"abs {float((plain - logits).abs().max()):.3e}")
+        del plain
+        t0 = time.perf_counter()
+        chunked, _, _ = model.forward(params, batch, impl="chunked")
+        torch.cuda.synchronize()
+        err = float((chunked - logits).abs().max())
+        scale = float(logits.abs().max())
+        log(f"  impl='chunked': wall {time.perf_counter() - t0:.3f} s; max "
+            f"abs {err:.3e} against the kernel's, max|logits| {scale:.3f}")
+        check(err <= 1e-4 * scale, f"chunked attention's prefill is "
+              f"{err:.3e} from the kernel's (limit {1e-4 * scale:.3e})")
+    return launches
+
+
+def phase_lm_train(dev):
+    """Phase 18; returns the launch counts of (a) and (b) and (b)'s solves'
+    (M, k)."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import load_server_state
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_centralized, train_fedcore_lm
+
+    cfg = get_config(LM_ARCH).with_(n_layers=LM_TRAIN_DEPTH)
+    ckpt = LANE_DIR / "lm_checkpoint"
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_centralized(cfg, ckpt_dir=str(ckpt), log_every=5, seed=0,
+                            device=dev, **LM_TRAIN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tlaunches = dict(ops.LAUNCHES)
+    steps = LM_TRAIN["steps"]
+    losses = out["losses"]
+    log(f"  (a) train_centralized at depth {LM_TRAIN_DEPTH}: {steps} steps "
+        f"in {wall:.2f} s (checkpoint included); loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}; launches {tlaunches}")
+    check(losses[-1] < losses[0], "training did not lower the loss")
+    check(tlaunches["flash_attention"] == LM_TRAIN_DEPTH * steps
+          and tlaunches["rmsnorm"] == (2 * LM_TRAIN_DEPTH + 1) * steps,
+          f"kernels 7 / 8 launched {tlaunches['flash_attention']} / "
+          f"{tlaunches['rmsnorm']} times in {steps} steps")
+    t0 = time.perf_counter()
+    loaded, step = load_server_state(str(ckpt), like=out["params"])
+    nbytes = sum(f.stat().st_size for f in ckpt.iterdir())
+    same = step == steps and all(torch.equal(loaded[k], v)
+                                 for k, v in out["params"].items())
+    log(f"  checkpoint {nbytes:,} bytes read back in "
+        f"{time.perf_counter() - t0:.2f} s: step {step}, params "
+        f"bit-identical {same}")
+    check(same, "the checkpoint did not give the params back bit for bit")
+    shutil.rmtree(ckpt)
+    del out, loaded
+    torch.cuda.empty_cache()
+
+    with solver_shapes() as hist:
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fout = train_fedcore_lm(cfg, device=dev, **LM_FEDCORE)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        flaunches = dict(ops.LAUNCHES)
+    hist_k = [(h["round"], h["coreset_silos"],
+               round(float(h["round_time"] / h["tau"]), 4), h["loss"])
+              for h in fout["history"]]
+    n_core = sum(h["coreset_silos"] for h in fout["history"])
+    sizes = [{silo: len(c) for silo, c in r.items()}
+             for r in fout["coresets"]]
+    log(f"  (b) train_fedcore_lm at depth {LM_TRAIN_DEPTH}: wall "
+        f"{wall:.2f} s; (round, coreset silos, time / tau, loss) {hist_k}; "
+        f"coreset sizes by silo {sizes} of m = "
+        f"{LM_FEDCORE['steps_per_epoch'] * LM_FEDCORE['batch']}; "
+        f"launches {flaunches}")
+    log_solver_shapes(hist)
+    check(n_core > 0, "no silo selected a coreset")
+    check(all(h["round_time"] <= h["tau"] * 1.001 for h in fout["history"]),
+          "a FedCore-for-LM round missed its deadline")
+    check(all(flaunches[k] > 0 for k in SYNC_KERNELS + ("flash_attention",
+                                                        "rmsnorm")),
+          f"a kernel never launched on the LM FedCore path: {flaunches}")
+    check(flaunches["pairwise_l2"] == n_core,
+          f"kernel 1 launched {flaunches['pairwise_l2']} times for {n_core} "
+          f"coresets")
+    params = fout.pop("params")
+    t0 = time.perf_counter()
+    pout = train_fedcore_lm(cfg, device=dev, use_kernel=False, **LM_FEDCORE)
+    torch.cuda.synchronize()
+    log(f"  plain twin: wall {time.perf_counter() - t0:.2f} s")
+    check(pout["coresets"] == fout["coresets"],
+          "the plain twin selected other coresets")
+    check([h["loss"] for h in pout["history"]]
+          == [h["loss"] for h in fout["history"]],
+          "the plain twin's losses differ")
+    check(all(torch.equal(pout["params"][k], v) for k, v in params.items()),
+          "the plain twin's params are not bit-identical")
+    log("  plain twin: coresets equal, losses equal, params bit-identical")
+    return tlaunches, flaunches, sorted(hist)
+
+
 T0 = time.time()          # the script's start, shared with its lanes
 PHASE_SECONDS = {}
 # what a lane hands the script besides its launches and phase seconds
@@ -2786,6 +3179,34 @@ def lane_xlstm():
     return {"fleet_xlstm": xlaunches}
 
 
+def lane_lm():
+    """Phases 16-18; returns the launch counts of the LM paths: serving,
+    prefill, training and FedCore-for-LM."""
+    import gc
+
+    import torch
+
+    dev = torch.device("cuda")
+    with phase("lm_serve", "16: LM serving, generate on yi-9b (48 layers, "
+               "d_model 4096, 32/4 heads, d_ff 11008, vocab 64000, fp32), "
+               "batch 4, prompt 16, 32 greedy tokens"):
+        model, params, slaunches = phase_lm_serve(dev)
+    with phase("lm_prefill", "17: LM prefill, Model.forward on yi-9b, one "
+               "4,096-token sequence, kernel 7 against its plain twin and "
+               "chunked attention"):
+        plaunches = phase_lm_prefill(dev, model, params)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("lm_train", "18: LM training at yi-9b's widths, depth 2: "
+               "train_centralized (Adam, 20 steps) and train_fedcore_lm (2 "
+               "rounds, 4 silos, F = 4096) with its plain twin"):
+        tlaunches, flaunches, shapes = phase_lm_train(dev)
+    LANE_RESULTS["lm_shapes"] = shapes
+    return {"lm_serve": slaunches, "lm_prefill": plaunches,
+            "lm_train": tlaunches, "lm_fedcore": flaunches}
+
+
 def lane_main(name: str, parent: int) -> int:
     """One lane, started by ``main``: dies with its parent, runs its
     phases and writes {"launches": {path: counts}, "phases": {key: s}}
@@ -2803,7 +3224,7 @@ def lane_main(name: str, parent: int) -> int:
     torch.set_num_threads(2)
     setup_torch()
     launches = {"sync_cnn": lane_sync_cnn, "translm": lane_translm,
-                "xlstm": lane_xlstm}[name]()
+                "xlstm": lane_xlstm, "lm": lane_lm}[name]()
     tmp = LANE_DIR / f"{name}.json.tmp"
     tmp.write_text(json.dumps({"launches": launches,
                                "phases": PHASE_SECONDS, **LANE_RESULTS}))
@@ -2811,25 +3232,22 @@ def lane_main(name: str, parent: int) -> int:
     return 0
 
 
-def run_lanes():
-    """Start the lanes, wait for all of them, print their output in
+def run_lanes(lanes):
+    """Start ``lanes``, wait for all of them, print their output in
     order; returns their merged launch counts and phase seconds and the
-    sync path's (M, k) of kernels 2 and 3.  Any lane's failure stops the
-    others and fails the phase, as does the deadline."""
-    import shutil
-
-    shutil.rmtree(LANE_DIR, ignore_errors=True)
-    LANE_DIR.mkdir(parents=True)
+    sync and LM FedCore paths' (M, k) of kernels 2 and 3.  Any lane's
+    failure stops the others and fails the phase, as does the
+    deadline."""
     procs, logs = {}, {}
     env = dict(os.environ, CHIP_SMOKE_T0=repr(T0))
     try:
-        for name in LANES:
+        for name in lanes:
             logs[name] = open(LANE_DIR / f"{name}.log", "w")
             procs[name] = subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--lane",
                  name, str(os.getpid())], cwd=ROOT, env=env,
                 stdout=logs[name], stderr=subprocess.STDOUT)
-        log(f"  lanes {', '.join(LANES)} started")
+        log(f"  lane(s) {', '.join(lanes)} started")
         while True:
             codes = {n: p.poll() for n, p in procs.items()}
             failed = [n for n, c in codes.items() if c not in (None, 0)]
@@ -2846,19 +3264,20 @@ def run_lanes():
             p.wait()
         for f in logs.values():
             f.close()
-    for name in LANES:
+    for name in lanes:
         log(f"-- lane {name} (exit {procs[name].returncode}):")
         sys.stdout.write((LANE_DIR / f"{name}.log").read_text())
         sys.stdout.flush()
     check(not failed, f"lane(s) {', '.join(failed)} failed or were stopped "
           f"(exits {[procs[n].returncode for n in failed]}; deadline "
           f"{LANE_DEADLINE_S:.0f} s)")
-    by_path, phases, shapes = {}, {}, []
-    for name in LANES:
+    by_path, phases, shapes = {}, {}, {"sync": [], "lm": []}
+    for name in lanes:
         res = json.loads((LANE_DIR / f"{name}.json").read_text())
         by_path.update(res["launches"])
         phases.update(res["phases"])
-        shapes += [tuple(s) for s in res.get("sync_shapes", ())]
+        for path in shapes:
+            shapes[path] += [tuple(s) for s in res.get(f"{path}_shapes", ())]
     return by_path, phases, shapes
 
 
@@ -2899,14 +3318,29 @@ def main() -> int:
     with phase("kernels", "2: kernels against their plain versions (rtol "
                "1e-5, atol 1e-5*max|plain|)"):
         kernels = phase_kernels(dev, kernel_cases(dev, *phase2_groups(dev)))
+    # hand the lanes the memory phase 2 left cached (yi-9b needs 40 GiB)
+    torch.cuda.empty_cache()
+    import shutil
+
+    shutil.rmtree(LANE_DIR, ignore_errors=True)
+    LANE_DIR.mkdir(parents=True)
     log(f"[{time.time() - T0:.0f} s] == phases 3-15 in three concurrent "
         f"lanes: 3-7 and 12-15 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 "
         f"({LANES[2]})")
-    by_path, lane_phases, sync_shapes = run_lanes()
+    by_path, lane_phases, solve_shapes = run_lanes(LANES)
+    log(f"[{time.time() - T0:.0f} s] == phases 16-18 in lane "
+        f"{LM_LANES[0]}, alone: its GPU-bound prefill would stretch the "
+        f"host-bound lanes' waits on the card")
+    lm_path, lm_phases, lm_shapes = run_lanes(LM_LANES)
+    by_path.update(lm_path)
     PHASE_SECONDS.update(lane_phases)
+    PHASE_SECONDS.update(lm_phases)
+    solve_shapes["lm"] += lm_shapes["lm"]
     with phase("kernels_sync", "2, continued: kernels 2 and 3 at the sync "
-               "path's (M, K) of phase 3"):
-        phase_kernels(dev, sync_cases(dev, sync_shapes), kernels)
+               "path's (M, K) of phase 3 and the LM FedCore path's of "
+               "phase 18"):
+        phase_kernels(dev, sync_cases(dev, solve_shapes["sync"])
+                      + sync_cases(dev, solve_shapes["lm"], "lm"), kernels)
 
     log("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                       PHASE_SECONDS.items())

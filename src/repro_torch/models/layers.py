@@ -1,16 +1,20 @@
 """Building blocks shared by the port's models, as the JAX package's
-``models/layers.py`` defines them: initialisers, RMSNorm, rotary
-position embeddings and the feed-forward block.
+``models/layers.py`` defines them: initialisers, RMSNorm and LayerNorm,
+rotary and sinusoidal position embeddings, the feed-forward block and
+the stacked-layer helpers.
 
 Parameters are plain dicts of tensors, as in the JAX package; dense
-kernels are (d_in, d_out) and multiply as ``x @ W``.  RMSNorm goes
+kernels are (d_in, d_out) and multiply as ``x @ W``.  Initialisers draw
+from an explicit ``torch.Generator`` on the generator's device (a model
+of billions of parameters is drawn on the card, not moved there); they
+do not replay the JAX package's keys.  RMSNorm goes
 through ``repro_torch.kernels.ops.rmsnorm``: the CUDA kernel on the card,
 its plain version on the CPU.  (The JAX package's model norms are plain
 jnp; its fused Pallas RMSNorm is reached only by its kernel test.)
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -32,15 +36,22 @@ def dense_init(generator: torch.Generator, d_in: int, d_out: int,
     default — the JAX package's ``dense_init`` with a torch generator."""
     scale = scale if scale is not None else 1.0 / np.sqrt(d_in)
     return torch.randn((d_in, d_out), generator=generator,
-                       dtype=torch.float32) * scale
+                       dtype=torch.float32, device=generator.device) * scale
+
+
+def embed_init(generator: torch.Generator, vocab: int, d: int
+               ) -> torch.Tensor:
+    """(vocab, d) float32 N(0, 1)·0.02."""
+    return torch.randn((vocab, d), generator=generator, dtype=torch.float32,
+                       device=generator.device) * 0.02
 
 
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
 
-def init_rmsnorm(d: int) -> Params:
-    return {"scale": torch.ones((d,), dtype=torch.float32)}
+def init_rmsnorm(d: int, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
 
 
 def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5,
@@ -56,6 +67,23 @@ def rmsnorm(params: Params, x: torch.Tensor, eps: float = 1e-5,
     return ops.rmsnorm(x, params["scale"], eps=eps, use_kernel=use_kernel)
 
 
+def init_layernorm(d: int, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params: Params, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """(x − mean)·rsqrt(var + eps)·scale + bias over the last axis, in
+    float32, back in x's dtype (the population variance, as ``jnp.var``).
+    Plain PyTorch: no TPU kernel stands behind it."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"] + params["bias"]).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -64,8 +92,10 @@ def rope_freqs(d_head: int, theta: float,
                device: Optional[torch.device] = None) -> torch.Tensor:
     exps = torch.arange(0, d_head, 2, dtype=torch.float32,
                         device=device) / d_head
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                        device=device), exps)
+    # theta filled on the device: a host tensor copied there would wait
+    # for the card's queue to drain at every call
+    return 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                      device=device), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -80,6 +110,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_pos(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) float32: sin at the even columns, cos at the odd, the
+    angles in float64 numpy as the JAX package computes them."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * i / d)
+    out = np.zeros((seq, d), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -106,3 +148,30 @@ def mlp(params: Params, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
         return (g * u) @ params["w_down"]
     h = F.gelu(x @ params["w_up"], approximate="tanh")
     return h @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# stacked-layer helpers
+# ---------------------------------------------------------------------------
+
+def init_stacked(generator: torch.Generator, n_layers: int,
+                 init_one: Callable[[torch.Generator], Params]) -> Params:
+    """``n_layers`` copies of a module, stacked on a leading axis: layer
+    i is ``init_one(generator)``, drawn in turn from the one generator.
+    Each layer is copied into the preallocated stack as it is drawn, so
+    the peak is the stack and one layer."""
+    first = init_one(generator)
+    out = {k: torch.empty((n_layers,) + v.shape, dtype=v.dtype,
+                          device=v.device) for k, v in first.items()}
+    for k, v in first.items():
+        out[k][0] = v
+    del first
+    for i in range(1, n_layers):
+        for k, v in init_one(generator).items():
+            out[k][i] = v
+    return out
+
+
+def unembed(params: Params, h: torch.Tensor) -> torch.Tensor:
+    """h: (..., d) -> logits (..., vocab)."""
+    return h @ params["w_unembed"]

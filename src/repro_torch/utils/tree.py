@@ -6,8 +6,9 @@ names ``nn.Module.named_parameters`` gives.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 Params = Dict[str, torch.Tensor]
@@ -30,7 +31,6 @@ def tree_weighted_mean(trees: Sequence[Params],
             acc = acc + trees[i][k] * ws[i]
         out[k] = acc
     return out
-
 
 
 def tree_add(a: Params, b: Params) -> Params:
@@ -68,3 +68,43 @@ def reference_leaves(params: Params, layouts=None, lead: int = 0) -> list:
             x = x.permute(*range(lead), *(lead + a for a in layouts[k]))
         out.append(x)
     return out
+
+
+def tree_zeros_like(a: Params) -> Params:
+    """Leaf-wise zeros of each leaf's shape, dtype and device."""
+    return {k: torch.zeros_like(v) for k, v in a.items()}
+
+
+def global_norm(tree: Params) -> torch.Tensor:
+    """sqrt(Σ over leaves of Σx²) in float32, the leaves' sums added in
+    the JAX package's leaf order (``reference_keys``), as its
+    ``global_norm`` adds the sums of ``jax.tree.leaves``."""
+    total = 0
+    for k in reference_keys(tree):
+        total = total + torch.sum(torch.square(tree[k].float()))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def param_count(tree: Params) -> int:
+    return int(sum(v.numel() for v in tree.values()))
+
+
+def tree_allclose(a: Params, b: Params, rtol=1e-5, atol=1e-6) -> bool:
+    """Same keys, and every leaf of ``a`` within ``np.allclose`` of
+    ``b``'s."""
+    if sorted(a) != sorted(b):
+        return False
+    return all(np.allclose(a[k].detach().cpu().numpy(),
+                           b[k].detach().cpu().numpy(), rtol=rtol, atol=atol)
+               for k in a)
+
+
+def split_keys(generator: torch.Generator, n: int) -> List[torch.Generator]:
+    """``n`` child generators on ``generator``'s device, each seeded with
+    one draw of ``generator``: the counterpart of ``jax.random.split``,
+    which it does not replay (the port's draws are not the JAX
+    package's; the parity tests convert the JAX init instead)."""
+    seeds = torch.randint(0, 2 ** 62, (n,), generator=generator,
+                          device=generator.device)
+    return [torch.Generator(device=generator.device).manual_seed(int(s))
+            for s in seeds.tolist()]

@@ -890,3 +890,43 @@ def test_short_xlstm_fleet_goes_through_the_rmsnorm_kernel(cuda):
     assert ops.LAUNCHES["rmsnorm"] > 0, ops.LAUNCHES
     assert all(bool(torch.isfinite(v).all()) for v in out["params"].values())
     assert all(v.device.type == "cuda" for v in out["params"].values())
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "granite-20b", "command-r-35b"])
+def test_dense_model_kernel_forward_equals_plain_twin(cuda, arch):
+    """A smoke-size dense ``Model`` on the card: ``impl=None`` resolves to
+    the kernel and launches kernels 7 and 8; its logits, its loss's
+    gradients and its decode logits equal the plain twin's
+    (``use_kernel=False``: the kernels' plain versions) bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.models.training import make_grad_fn
+
+    cfg = get_config(arch, smoke=True)
+    model, twin = Model(cfg), Model(cfg, use_kernel=False)
+    assert model.resolve_impl(None, cuda) == "kernel"
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
+                           device=cuda)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    ops.reset_launch_counts()
+    logits, _, _ = model.forward(params, batch)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
+    assert ops.LAUNCHES["rmsnorm"] == 2 * cfg.n_layers + 1
+    plain, _, _ = twin.forward(params, batch, impl="kernel")
+    _same(logits, plain)
+    chunked, _, _ = twin.forward(params, batch)
+    assert float((chunked - logits).abs().max()) <= \
+        1e-4 * float(logits.abs().max())
+    g1, _ = make_grad_fn(model.loss)(params, batch)
+    g2, _ = make_grad_fn(twin.loss)(params, batch)
+    for k in g1:
+        _same(g1[k], g2[k])
+    states = [m.init_decode_state(params, 2, 8, dtype=torch.float32)
+              for m in (model, twin)]
+    for t in range(8):
+        a, _ = model.decode_step(params, states[0], tokens[:, t:t + 1], t)
+        b, _ = twin.decode_step(params, states[1], tokens[:, t:t + 1], t)
+        _same(a, b)

@@ -1,6 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package, and no
 silent CPU path.  Runs without JAX installed."""
 import ast
+import functools
+import json
 import os
 import subprocess
 import sys
@@ -36,6 +38,25 @@ def test_importing_the_runtime_loads_no_jax():
             "repro_torch.convert, repro_torch.fed.fleet, "
             "repro_torch.models.attention, repro_torch.configs; "
             "bad = [m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'repro.'))]; "
+            "assert not bad, bad; print('ok')")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_importing_the_lm_path_loads_no_jax():
+    """The dense LM path: the model, the configs (all ten), the
+    optimisers and schedules, the train step and both launchers."""
+    code = ("import sys, repro_torch.models.model, repro_torch.configs, "
+            "repro_torch.optim, repro_torch.optim.schedules, "
+            "repro_torch.models.training, repro_torch.launch.train, "
+            "repro_torch.launch.serve, repro_torch.utils; "
+            "[repro_torch.configs.get_config(a) for a in "
+            "repro_torch.configs.ARCH_IDS]; "
+            "bad = [m for m in sys.modules if m in ('jax', 'repro') or "
             "m.startswith(('jax.', 'repro.'))]; "
             "assert not bad, bad; print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -130,3 +151,69 @@ def test_entry_points_without_device_need_cuda():
         run_async_fleet(model, [{}], [ClientSpec(0, 4, 1.0)],
                         AsyncFleetConfig())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+# the LM path's packages: public names of the JAX package's that belong
+# to open ROADMAP items, read in a fresh interpreter after importing the
+# package alone (so no other test's imports add submodules): the MoE and
+# Mamba2 modules (items 16b, 16c), and the launchers' mesh helpers and
+# dry run (item 17)
+LM_OPEN_ITEM_NAMES = {"models": {"mamba2", "moe"}, "optim": set(),
+                      "utils": set(), "configs": set(),
+                      "launch": {"mesh", "make_host_mesh",
+                                 "make_production_mesh"}}
+# the public names a reference module defines that belong to open items:
+# the sLSTM half of models/xlstm.py (item 16d)
+LM_OPEN_MODULE_NAMES = {"models.xlstm": {"SLSTMState", "init_slstm",
+                                         "init_slstm_state", "slstm_block"}}
+LM_MODULES = ("models.model", "models.attention", "models.layers",
+              "models.training", "models.xlstm", "optim.optimizers",
+              "optim.schedules", "utils.tree", "configs.base",
+              "launch.train", "launch.serve")
+
+
+@functools.lru_cache(maxsize=None)
+def _lm_public_names(root: str) -> dict:
+    """{name: public names} of ``root``'s LM packages and modules, read in
+    one fresh interpreter: each package's names right after importing it
+    (so no other test's imports add submodules), then for each module the
+    functions and classes it defines and its upper-case constants."""
+    code = ("import importlib, json; out = {}\n"
+            f"for name in {sorted(LM_OPEN_ITEM_NAMES)!r}:\n"
+            f"    m = importlib.import_module({root!r} + '.' + name)\n"
+            "    out[name] = sorted(n for n in dir(m) if n[0] != '_')\n"
+            f"for name in {LM_MODULES!r}:\n"
+            f"    m = importlib.import_module({root!r} + '.' + name)\n"
+            "    out[name] = sorted(\n"
+            "        n for n in dir(m) if n[0] != '_' and (n.isupper() or\n"
+            "        getattr(getattr(m, n), '__module__', None)\n"
+            "        == m.__name__))\n"
+            "print(json.dumps(out))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return {k: set(v) for k, v in json.loads(out.stdout).items()}
+
+
+@pytest.mark.parametrize("package", sorted(LM_OPEN_ITEM_NAMES))
+def test_lm_package_public_names_equal_reference(package):
+    """``repro_torch.<package>`` exports every public name of
+    ``repro.<package>`` but those of open items, and nothing else."""
+    pytest.importorskip("jax")
+    want = _lm_public_names("repro")[package]
+    got = _lm_public_names("repro_torch")[package]
+    assert LM_OPEN_ITEM_NAMES[package] <= want
+    assert want - LM_OPEN_ITEM_NAMES[package] == got
+
+
+@pytest.mark.parametrize("module", LM_MODULES)
+def test_lm_module_defines_the_reference_names(module):
+    """Each function, class and constant a reference module of the LM
+    path defines is defined by the port's module, open items aside."""
+    pytest.importorskip("jax")
+    want = _lm_public_names("repro")[module]
+    got = _lm_public_names("repro_torch")[module]
+    assert want - LM_OPEN_MODULE_NAMES.get(module, set()) <= got, \
+        want - got
