@@ -206,7 +206,33 @@ phases run in order and any failure exits non-zero:
     stragglers select on the card through kernels 1-3 at F = 4096, every
     round meets its deadline, and the plain twin (``use_kernel=False``
     for selection, attention and norms) picks equal coresets and gives
-    equal losses and bit-identical parameters.
+    equal losses and bit-identical parameters;
+19. the sharded fleet on phase 6's workload, clients and specs: (c)
+    ``FleetEngine.select_group_coresets`` on the largest straggler group
+    (M = 512, k = 64), fused (one dispatch, kernels 5-6) and the
+    pre-fusion chain (three dispatches, no kernel), the objectives within
+    1e-6 relative or tied in the float64 objective, or, where the two
+    reach distinct local optima, each within ``SELECT_QUALITY`` of the
+    float64 BUILD + SWAP's objective, both walls; (d)
+    ``workload_cost_model`` for the five fleet workloads: the CPU tests'
+    FLOP counts; batched references of ``SHARDED_ROUNDS`` rounds and one
+    async flush (phase 14's set-up); (a) one round of
+    ``ShardedFleetEngine`` on a one-rank NCCL group: the batched round's
+    medoids (or tied in the float64 objective), params within 1e-5,
+    kernels 2-6 each launched; (b) ``SHARDED_RANKS`` ranks sharing the
+    card over ``gloo`` (``chip_smoke.py --rank R N PID``, started by the
+    lane): ``run_fleet(engine="sharded")`` for ``SHARDED_ROUNDS`` rounds
+    and one flush of ``run_async_fleet(engine="sharded")``, each rank
+    with the launch counts set to 0 just before and read just after
+    (kernels 2-6 each launched): medoids per (round, client) equal to
+    a batched round's from the same round-start params (round 0 the
+    batched run's) or tied, params within the reference's CNN engine
+    tolerance (2e-4: a rank's vmap of its block of a group's lanes moves
+    a lane's params, as a lane-count A/B over every group shows) unless
+    a tie parts them, the async event log equal byte for byte, both ranks'
+    final params bit-identical, rank 0 alone recording; the round walls
+    with the all-reduce's time a round, beside the batched rounds and
+    phase 6's bare round.
 
 Phases 1-2 run alone.  Phases 3-7 and 12-15 (the sync and async runtimes
 and the CNN fleet), 8-9 (the ``translm`` fleet) and 10-11 (the ``xlstm``
@@ -221,8 +247,9 @@ phases 3-15 are therefore taken with the other two lanes running.
 Phases 16-18 (the dense LM) then run as a fourth lane, ``lm``, alone:
 its prefill keeps the card busy for seconds at a time, and the card's
 time slicing between processes would stretch every wait of the
-host-bound lanes (beside them on an H100 it made phase 5 2.3x slower).  A
-lane that fails stops the others;
+host-bound lanes (beside them on an H100 it made phase 5 2.3x slower).
+Phase 19 runs last, as the lane ``sharded``, alone: its ranks are two
+more processes on the card.  A lane that fails stops the others;
 lanes still running ``LANE_DEADLINE_S`` seconds after the start are
 stopped and the script fails with what they printed so far.
 
@@ -245,10 +272,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 LANE_DIR = ROOT / "build" / "chip_smoke"
-# the lanes of phases 3-15, run concurrently, then the lane of phases
-# 16-18 alone (see the module docstring)
+# the lanes of phases 3-15, run concurrently, then the lanes of phases
+# 16-18 and of phase 19, each alone (see the module docstring)
 LANES = ("sync_cnn", "translm", "xlstm")
 LM_LANES = ("lm",)
+SHARDED_LANES = ("sharded",)
 # lanes still running this long after the start are stopped: the whole
 # script must end within 1200 s
 LANE_DEADLINE_S = 1140.0
@@ -1580,6 +1608,7 @@ def phase_fleet():
         return run_fleet(wl, clients, specs, cfg, 1, straggler_pct=30.0)
 
     bare_wall, busy, by_name = bare_and_profiled(one_round)
+    LANE_RESULTS["fleet_bare_round_s"] = bare_wall     # phase 19 prints it
     log_kernel_time(by_name, busy, "pairwise", "pairwise_l2_kernel")
     log_kernel_time(by_name, busy, "distance-free (5-6)", "from_feats")
     log_kernel_time(by_name, busy, "BUILD over D (2)", "build_cost_walk")
@@ -1906,18 +1935,20 @@ ASYNC_FLEET_SPANS = ("cohort_build", "dispatch", "aggregate", "gather",
 @contextlib.contextmanager
 def async_fleet_recording():
     """Record, while open, each flush's cohort groups as (M, k, C), the
-    medoids of each group as (flush, {cid: indices}) in run order, and
+    medoids of each group (batched, loop or sharded) as (flush, {cid:
+    indices}) in run order, and
     the device of every stack ``robust_combine`` merges: a dict with
     ``groups``, ``medoids`` and ``robust_devices``."""
     import numpy as np
 
     import repro_torch.fed.fleet.async_engine as async_engine
-    from repro_torch.fed.fleet import FleetEngine
+    from repro_torch.fed.fleet import FleetEngine, ShardedFleetEngine
 
     rec = {"groups": {}, "medoids": [], "robust_devices": []}
     current = [0]
     make_groups = async_engine.make_cohort_groups
     run_group = FleetEngine.run_group
+    run_sharded = ShardedFleetEngine.run_group_sharded
     combine = async_engine.robust_combine
 
     def recording_groups(*args, round_seed=0, **kwargs):
@@ -1934,6 +1965,14 @@ def async_fleet_recording():
                 int(c): np.asarray(m) for c, m in zip(group.cids, meds)}))
         return p, losses, meds
 
+    def recording_run_sharded(self, params, group, weights,
+                              gather_stack=False):
+        out = run_sharded(self, params, group, weights, gather_stack)
+        if out[3] is not None:
+            rec["medoids"].append((current[0], {
+                int(c): np.asarray(m) for c, m in zip(group.cids, out[3])}))
+        return out
+
     def recording_combine(stacked, *args, **kwargs):
         rec["robust_devices"].append(
             str(next(iter(stacked.values())).device))
@@ -1941,12 +1980,14 @@ def async_fleet_recording():
 
     async_engine.make_cohort_groups = recording_groups
     FleetEngine.run_group = recording_run_group
+    ShardedFleetEngine.run_group_sharded = recording_run_sharded
     async_engine.robust_combine = recording_combine
     try:
         yield rec
     finally:
         async_engine.make_cohort_groups = make_groups
         FleetEngine.run_group = run_group
+        ShardedFleetEngine.run_group_sharded = run_sharded
         async_engine.robust_combine = combine
 
 
@@ -2999,6 +3040,462 @@ def phase_lm_train(dev):
     return tlaunches, flaunches, sorted(hist)
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the sharded fleet
+# ---------------------------------------------------------------------------
+
+SHARDED_RANKS = 2
+SHARDED_ROUNDS = 2
+# a coreset one path picks where the other picks another, on the same
+# features, is tied with it when their f64 k-medoids objectives are
+# within SHARDED_TIE (phase 4's rule); params after a round that a tie
+# parted are logged, not held.  (c)'s two selections differ in more
+# than their float32 rounding (the fused one rebuilds distances from the
+# features, the chain stores D and sweeps the legacy way), and SmallCNN's
+# gradient features at (M, k) = (512, 64) hold near-equal local optima
+# that they may part on, as the JAX package's two paths do (ROADMAP queue
+# 3): such a lane's coresets must each be within SELECT_QUALITY of the
+# f64 BUILD + SWAP's objective (``kmedoids_numpy``) on the features
+SHARDED_TIE = 1e-5
+SELECT_QUALITY = 1e-3
+# params of a sharded round against the batched one's: (a) runs every
+# group's lanes in one vmap, as batched does, so only the reduction's
+# summation order differs (the reference's 1e-5); (b) vmaps each group's
+# rank block, and the CNN's vmapped convolutions at another lane count
+# move a lane's params (the lane-count A/B): the reference's CNN engine
+# tolerance (PARAMS_ATOL_CNN) holds those
+SHARDED_ATOL = 1e-5
+
+
+def check_sharded_medoids(wl, clients, got, want, params0, what):
+    """Medoids per client of a sharded round (``got``) against a batched
+    round's from the same round-start params ``params0`` (``want``):
+    equal, or tied in the f64 objective over the client's features at
+    ``params0``.  Returns the number of tied clients."""
+    import torch
+
+    from repro_torch.core.kmedoids import medoid_objective_f64
+
+    check(set(got) == set(want), f"{what}: other clients selected")
+    n_tied = 0
+    dev = next(iter(params0.values())).device
+    for cid, med in want.items():
+        if (got[cid] == med).all():
+            continue
+        with torch.no_grad():
+            f = wl.grad_features(params0, {
+                k: torch.as_tensor(v, device=dev)
+                for k, v in clients[cid].items()}).double().cpu().numpy()
+        fg, fw = medoid_objective_f64(f, got[cid]), medoid_objective_f64(
+            f, med)
+        rel = abs(fg - fw) / max(abs(fw), 1e-30)
+        log(f"  {what}: client {cid} picks another coreset, f64 "
+            f"objectives {fg:.10g} vs {fw:.10g} (rel {rel:.2e})")
+        check(rel <= SHARDED_TIE, f"{what}: client {cid}'s coresets differ "
+              f"beyond a tie")
+        n_tied += 1
+    return n_tied
+
+
+def check_sharded_params(got, want, tied, what, atol):
+    """Params of a sharded round against the batched round's: within
+    ``atol`` unless a tie parted the rounds' coresets."""
+    diff = max(float((got[k].to(want[k].device) - want[k]).abs().max())
+               for k in want)
+    log(f"  {what}: params max abs diff {diff:.3e} from the batched "
+        f"round's" + (f" (after {tied} tied coresets: not held)"
+                      if tied else f" (atol {atol:g})"))
+    check(tied or diff <= atol, f"{what}: params differ by {diff:.3e}")
+
+
+def sharded_round_walls(records):
+    """(round walls, all-reduce seconds a round) from a run's spans."""
+    spans = [r for r in records if r["kind"] == "span"]
+    by_sid = {s["sid"]: s for s in spans}
+    walls = [s["dur"] for s in spans if s["name"] == "round"]
+    reduce_s = [0.0] * len(walls)
+    for s in spans:
+        if s["name"] != "allreduce":
+            continue
+        p = by_sid.get(s["parent"])
+        while p is not None and p["name"] != "round":
+            p = by_sid.get(p["parent"])
+        if p is not None:
+            reduce_s[p["attrs"]["round"]] += s["dur"]
+    return walls, reduce_s
+
+
+def phase_select_group(wl, clients, cfg, groups, params0, dev):
+    """(c): ``select_group_coresets`` on the largest straggler group, fused
+    (kernels 5-6) and the pre-fusion chain (plain PyTorch); returns the
+    fused call's launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.kmedoids import (kmedoids_numpy,
+                                           medoid_objective_f64)
+    from repro_torch.fed.fleet import FleetEngine
+    from repro_torch.kernels import ops
+
+    g = max((g for g in groups if g.k > 0),
+            key=lambda g: (g.valid.shape[1], g.k))
+    log(f"  largest straggler group: M = {g.valid.shape[1]}, k = {g.k}, "
+        f"C = {g.n_clients}")
+    check(g.valid.shape[1] >= cfg.materialize_below,
+          "the largest straggler group is below the distance-free cutover")
+    eng = FleetEngine(wl, cfg, device=dev)
+    out, walls = {}, {}
+    for fused in (True, False):
+        for _ in range(2):          # a warm call, then the timed one
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            n0 = eng.dispatch_count
+            t0 = time.perf_counter()
+            coreset, n = eng.select_group_coresets(params0, g, fused=fused)
+            torch.cuda.synchronize()
+            walls[fused] = time.perf_counter() - t0
+        out[fused] = (coreset, n, eng.dispatch_count - n0, dict(ops.LAUNCHES))
+    (fc, fn, fd, fl), (cc, cn, cd, cl) = out[True], out[False]
+    log(f"  fused: {fn} dispatch, wall {walls[True] * 1e3:.2f} ms, launches "
+        f"{fl}; chain: {cn} dispatches, wall {walls[False] * 1e3:.2f} ms, "
+        f"launches {cl}")
+    check((fn, cn) == (1, 3) and (fd, cd) == (1, 3),
+          f"dispatch counts {(fn, cn)} / {(fd, cd)}, not (1, 3)")
+    check(fl["build_cost_from_feats"] > 0 and fl["delta_sweep_from_feats"] > 0,
+          f"the fused selection did not launch kernels 5-6: {fl}")
+    check(not any(cl.values()), f"the chain launched a kernel: {cl}")
+    fo, co = fc.objective.cpu().numpy(), cc.objective.cpu().numpy()
+    with torch.no_grad():
+        feats = eng._group_features(params0, {
+            f: torch.as_tensor(v, device=dev) for f, v in g.data.items()},
+            g.n_clients).double().cpu().numpy()
+    n_tied = n_parted = 0
+    for c in range(g.n_clients):
+        if abs(fo[c] - co[c]) <= 1e-6 * abs(co[c]):
+            continue
+        m = int(g.m[c])
+        x = feats[c, :m]
+        ff = medoid_objective_f64(x, fc.indices[c].cpu().numpy())
+        fch = medoid_objective_f64(x, cc.indices[c].cpu().numpy())
+        rel = abs(ff - fch) / max(abs(fch), 1e-30)
+        line = (f"  lane {c}: objectives {fo[c]:.7g} vs {co[c]:.7g}; f64 "
+                f"{ff:.10g} vs {fch:.10g} (rel {rel:.2e})")
+        if rel <= SHARDED_TIE:
+            log(line + ": tied")
+            n_tied += 1
+            continue
+        # distinct local optima: each as good as the f64 BUILD + SWAP's
+        sq = (x * x).sum(1)
+        D = np.sqrt(np.maximum(sq[:, None] + sq[None, :] - 2.0 * (x @ x.T),
+                               0.0))
+        np.fill_diagonal(D, 0.0)
+        best = float(kmedoids_numpy(D, g.k, cfg.max_sweeps).objective)
+        worst = (max(ff, fch) - best) / best
+        log(line + f": distinct local optima, the f64 solve's {best:.10g}, "
+            f"the worse path {worst:.2e} above it")
+        check(worst <= SELECT_QUALITY, f"lane {c}: a coreset more than "
+              f"{SELECT_QUALITY:g} above the f64 solve's objective")
+        n_parted += 1
+    same = sum(bool((fc.indices[c] == cc.indices[c]).all())
+               for c in range(g.n_clients))
+    log(f"  {g.n_clients} lanes: {same} equal coresets, objectives within "
+        f"rel 1e-6 on {g.n_clients - n_tied - n_parted}, {n_tied} tied in "
+        f"f64, {n_parted} distinct local optima")
+    check(all(int(w.sum()) == int(m) for w, m in zip(
+        np.asarray(fc.weights.cpu()), g.m)), "fused weights do not "
+          "partition the clients' samples")
+    return fl
+
+
+def phase_cost_model():
+    """(d): ``workload_cost_model`` on the card's machine: the CPU tests'
+    counts for all five workloads, by FLOPs."""
+    from repro_torch.fed import workload_cost_model
+
+    want = {"mlp": 2400.0, "cnn": 1106240.0, "charlm": 679936.0,
+            "xlstm": 749568.0, "translm": 1277952.0}
+    t0 = time.perf_counter()
+    cms = {n: workload_cost_model(n) for n in want}
+    log(f"  workload_cost_model ({time.perf_counter() - t0:.2f} s): " +
+        ", ".join(f"{n} {cm.flops_per_sample:.0f} FLOPs a sample "
+                  f"(x{cm.cost_per_sample:.2f}, {cm.source})"
+                  for n, cm in cms.items()))
+    check(all(cm.source == "flops" and cm.flops_per_sample == want[n]
+              for n, cm in cms.items()),
+          "the cost model's counts differ from the CPU's")
+
+
+def phase_one_nccl_rank(wl, clients, specs, cfg, params0, kept, dev):
+    """(a): one round of ``ShardedFleetEngine`` on a one-rank NCCL group
+    against the batched run's first round; returns its launch counts."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.fed.fleet import (ShardedFleetEngine, client_mesh,
+                                       nominal_budgets, run_fleet_round)
+    from repro_torch.fed.simulator import straggler_deadline
+    from repro_torch.kernels import ops
+
+    store = LANE_DIR / "nccl_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(store), 1))
+    try:
+        eng = ShardedFleetEngine(wl, cfg, mesh=client_mesh(devices=[dev]),
+                                 device=dev)
+        budgets = nominal_budgets(
+            specs, straggler_deadline(specs, cfg.epochs, 30.0), cfg.epochs)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, stats = run_fleet_round(eng, params0, clients,
+                                        list(range(len(clients))), budgets,
+                                        mode="sharded")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    log(f"  one NCCL rank, one round: wall {wall:.3f} s, "
+        f"{eng.dispatch_count} dispatches, launches {launches}")
+    check(all(launches[k] > 0 for k in FLEET_KERNELS),
+          f"a fleet kernel never launched on the one-rank sharded round: "
+          f"{launches}")
+    meds, want = stats.medoids, kept[0]
+    tied = check_sharded_medoids(wl, clients, meds, want[0], params0,
+                                 "one NCCL rank")
+    check_sharded_params(params, want[1], tied, "one NCCL rank",
+                         SHARDED_ATOL)
+    log(f"  {len(meds)} coresets: {len(meds) - tied} equal to the batched "
+        f"round's, {tied} tied")
+    return launches
+
+
+def lane_count_ab(wl, cfg, groups, params0, dev):
+    """The batched group body on each group's lanes, all at once and in
+    the blocks the ``SHARDED_RANKS`` ranks of (b) run (the padded group's
+    contiguous lanes): each lane's params after its round, compared and
+    logged.  The selection is per lane; the vmapped SGD's convolutions
+    may take other algorithms at another lane count, which moves a
+    lane's params."""
+    import numpy as np
+
+    from repro_torch.fed.fleet import CohortGroup, FleetEngine
+
+    eng = FleetEngine(wl, cfg, device=dev)
+    parts = []
+    for g in groups:
+        full, _, meds = eng.run_group(params0, g)
+        c = g.n_clients
+        pad = (-c) % SHARDED_RANKS
+        per = (c + pad) // SHARDED_RANKS
+        diff, same = 0.0, True
+        for r in range(SHARDED_RANKS):
+            lanes = np.minimum(np.arange(r * per, (r + 1) * per), c - 1)
+            sub = CohortGroup(
+                cids=g.cids[lanes],
+                data={f: v[lanes] for f, v in g.data.items()},
+                valid=g.valid[lanes], m=g.m[lanes], k=g.k,
+                perms=g.perms[lanes])
+            p, _, m = eng.run_group(params0, sub)
+            diff = max([diff] + [float((full[k][lanes] - p[k]).abs().max())
+                                 for k in full])
+            same = same and (meds is None or bool((meds[lanes] == m).all()))
+        check(same, f"group {g.valid.shape[1], g.k, c}: a lane's medoids "
+              "depend on the lane count")
+        parts.append(f"({g.valid.shape[1]}, {g.k}, {c}) {diff:.2e}")
+    log(f"  lane-count A/B, each group's lanes vmapped all at once and in "
+        f"{SHARDED_RANKS} rank blocks, (M, k, C) params max abs diff: "
+        + ", ".join(parts) + "; medoids equal")
+
+
+def run_sharded_ranks():
+    """(b): start the ``SHARDED_RANKS`` gloo ranks on the card, wait for
+    them and return their results."""
+    import torch
+
+    (LANE_DIR / "gloo_init").unlink(missing_ok=True)
+    names = [f"sharded_rank{r}" for r in range(SHARDED_RANKS)]
+    failed = run_children({n: ["--rank", str(r), str(SHARDED_RANKS)]
+                           for r, n in enumerate(names)})
+    check(not failed, f"sharded rank(s) {', '.join(failed)} failed or were "
+          "stopped")
+    return [torch.load(LANE_DIR / f"{n}.pt", weights_only=False)
+            for n in names]
+
+
+def sharded_rank_main(rank: int, world: int, parent: int) -> int:
+    """One rank of (b), started by the sharded lane: dies with it, joins
+    the gloo group through ``build/chip_smoke/gloo_init`` and runs
+    ``sharded_rank_run`` on the card."""
+    import ctypes
+    import datetime
+
+    ctypes.CDLL(None).prctl(1, signal.SIGKILL)
+    if os.getppid() != parent:
+        return 1
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(2)
+    setup_torch()
+    dist.init_process_group(
+        "gloo", init_method=f"file://{LANE_DIR / 'gloo_init'}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=300))
+    try:
+        sharded_rank_run(rank, torch.device("cuda", 0))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def sharded_rank_run(rank: int, dev):
+    """(b) on one rank: ``run_fleet(engine="sharded")`` for
+    ``SHARDED_ROUNDS`` rounds and one flush of
+    ``run_async_fleet(engine="sharded")`` on phase 6's fleet, each with
+    the launch counts set to 0 just before and read just after; writes
+    the results to ``build/chip_smoke/sharded_rank<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.fed.fleet import AsyncFleetConfig
+
+    wl = cnn_fleet_workload()
+    clients = wl.make_clients()
+    specs, cfg, _ = fleet_setup(wl, clients)
+    out, kept, records, launches, wall = run_fleet_recorded(
+        wl, clients, specs, cfg, SHARDED_ROUNDS, "sharded", device=dev)
+    log(f"rank {rank}: {SHARDED_ROUNDS} rounds, wall {wall:.2f} s, "
+        f"engine_mode {out['engine_mode']}, launches {launches}")
+    one = AsyncFleetConfig(**dict(ASYNC_FLEET, max_updates=1))
+    aout, arec, _, alaunches, awall = run_async_fleet_recorded(
+        wl, clients, specs, one, engine="sharded", aggregator="fedbuff",
+        device=dev)
+    log(f"rank {rank}: one async flush, wall {awall:.2f} s, engine_mode "
+        f"{aout['engine_mode']}, launches {alaunches}")
+    dist.barrier()
+    walls, reduce_s = sharded_round_walls(records)
+    torch.save({
+        "engine_mode": out["engine_mode"], "n_devices": out["n_devices"],
+        "kept": [(m, {k: v.cpu() for k, v in p.items()}) for m, p in kept],
+        "history": out["history"], "launches": launches, "wall": wall,
+        "walls": walls, "allreduce_s": reduce_s, "n_records": len(records),
+        "async": {"event_log": aout["event_log"],
+                  "engine_mode": aout["engine_mode"],
+                  "medoids": arec["medoids"],
+                  "params": {k: v.cpu() for k, v in aout["params"].items()},
+                  "launches": alaunches, "wall": awall}},
+        LANE_DIR / f"sharded_rank{rank}.pt")
+
+
+def phase_sharded(dev):
+    """Phase 19 on ``dev``: (c) the selection A/B, (d) the cost model, the
+    batched references, (a) one NCCL rank, (b) two gloo ranks on the card;
+    returns the launch counts of each path."""
+    import torch
+
+    from repro_torch.fed.fleet import (AsyncFleetConfig, FleetEngine,
+                                       nominal_budgets, run_fleet_round)
+    from repro_torch.fed.simulator import straggler_deadline
+
+    wl = cnn_fleet_workload()
+    clients = wl.make_clients()
+    specs, cfg, groups = fleet_setup(wl, clients)
+    params0 = wl.init(torch.Generator().manual_seed(cfg.seed), dev)
+    log_groups(groups)
+    log("  (c) select_group_coresets, fused and the pre-fusion chain:")
+    slaunches = phase_select_group(wl, clients, cfg, groups, params0, dev)
+    log("  (d) the cost model:")
+    phase_cost_model()
+
+    out, kept, records, blaunches, bwall = run_fleet_recorded(
+        wl, clients, specs, cfg, SHARDED_ROUNDS, "batched", device=dev)
+    bwalls, _ = sharded_round_walls(records)
+    log(f"  batched reference, {SHARDED_ROUNDS} rounds: wall {bwall:.2f} s, "
+        f"round walls " + ", ".join(f"{w:.3f}" for w in bwalls))
+    one = AsyncFleetConfig(**dict(ASYNC_FLEET, max_updates=1))
+    aout, arec, _, _, awall = run_async_fleet_recorded(
+        wl, clients, specs, one, aggregator="fedbuff", device=dev)
+    log(f"  batched reference, one async flush: wall {awall:.2f} s")
+
+    log("  (a) one NCCL rank:")
+    nlaunches = phase_one_nccl_rank(wl, clients, specs, cfg, params0, kept,
+                                    dev)
+
+    lane_count_ab(wl, cfg, groups, params0, dev)
+
+    log(f"  (b) {SHARDED_RANKS} gloo ranks sharing the card:")
+    ranks = run_sharded_ranks()
+    lead, other = ranks
+    check(all(torch.equal(v, o[1][k]) for (_, p), o in zip(lead["kept"],
+                                                          other["kept"])
+              for k, v in p.items())
+          and all(torch.equal(v, other["async"]["params"][k])
+                  for k, v in lead["async"]["params"].items()),
+          "the ranks' params are not bit-identical")
+    # each sharded round against a batched round from its own round-start
+    # params: round 0 the batched run's, later rounds one more batched
+    # round (the engines' params part after a round, so their later
+    # selections run on other features)
+    budgets = nominal_budgets(
+        specs, straggler_deadline(specs, cfg.epochs, 30.0), cfg.epochs)
+    want_rounds = [kept[0]]
+    for i in range(1, SHARDED_ROUNDS):
+        start = {k: v.to(dev) for k, v in lead["kept"][i - 1][1].items()}
+        p, st = run_fleet_round(FleetEngine(wl, cfg, device=dev), start,
+                                clients, list(range(len(clients))), budgets,
+                                round_seed=i)
+        want_rounds.append((st.medoids, p))
+    for r, res in enumerate(ranks):
+        check((res["engine_mode"], res["n_devices"])
+              == ("sharded", SHARDED_RANKS),
+              f"rank {r} ran {res['engine_mode']} on {res['n_devices']}")
+        check(all(res["launches"][k] > 0 for k in FLEET_KERNELS),
+              f"rank {r} never launched a fleet kernel: {res['launches']}")
+        check(all(res["async"]["launches"][k] > 0 for k in FLEET_KERNELS[:3]),
+              f"rank {r}'s async flush never launched a selection kernel: "
+              f"{res['async']['launches']}")
+        for i, ((gm, gp), (wm, wp)) in enumerate(zip(res["kept"],
+                                                     want_rounds)):
+            start = params0 if i == 0 else {
+                k: v.to(dev) for k, v in res["kept"][i - 1][1].items()}
+            tied = check_sharded_medoids(wl, clients, gm, wm, start,
+                                         f"rank {r} round {i}")
+            check_sharded_params(gp, wp, tied, f"rank {r} round {i}",
+                                 PARAMS_ATOL_CNN)
+        check([h.client_times for h in res["history"]]
+              == [h.client_times for h in out["history"]],
+              f"rank {r}: the history's timing differs from batched")
+        a = res["async"]
+        check(a["engine_mode"] == "sharded"
+              and a["event_log"] == aout["event_log"],
+              f"rank {r}: the async flush's event log differs from batched")
+        check_same_medoids(a["medoids"], arec["medoids"],
+                           f"rank {r} async flush")
+    check(lead["n_records"] > 0 and other["n_records"] == 0,
+          "rank 0 alone must write the recorder's sinks")
+    sync_lane = LANE_DIR / "sync_cnn.json"
+    bare = (json.loads(sync_lane.read_text()).get("fleet_bare_round_s")
+            if sync_lane.exists() else None)
+    log(f"  ranks' params bit-identical after every round; async event "
+        f"logs equal "
+        f"({len(aout['event_log'])} events)")
+    log(f"  round walls s: sharded (rank 0) " + ", ".join(
+        f"{w:.3f} (all-reduce {s:.4f})" for w, s in
+        zip(lead["walls"], lead["allreduce_s"])) + "; batched " + ", ".join(
+        f"{w:.3f}" for w in bwalls) + (f"; phase 6's bare round {bare:.3f}"
+                                       if bare else "")
+        + f"; async flush: sharded {lead['async']['wall']:.2f} s, batched "
+        f"{awall:.2f} s")
+
+    both = {k: sum(r["launches"][k] for r in ranks) for k in blaunches}
+    both_async = {k: sum(r["async"]["launches"][k] for r in ranks)
+                  for k in blaunches}
+    return {"fleet_sharded": both, "async_fleet_sharded": both_async,
+            "fleet_sharded_nccl": nlaunches, "select_group": slaunches}
+
+
 T0 = time.time()          # the script's start, shared with its lanes
 PHASE_SECONDS = {}
 # what a lane hands the script besides its launches and phase seconds
@@ -3207,6 +3704,20 @@ def lane_lm():
             "lm_train": tlaunches, "lm_fedcore": flaunches}
 
 
+def lane_sharded():
+    """Phase 19; returns the launch counts of the sharded fleet paths and
+    of the fused selection."""
+    with phase("sharded", "19: the sharded fleet on phase 6's fleet: "
+               "select_group_coresets, the cost model, one NCCL rank, "
+               f"{SHARDED_RANKS} gloo ranks sharing the card"):
+        log(f"  card: {card_line()}")
+        import torch
+
+        launches = phase_sharded(
+            torch.device("cuda", torch.cuda.current_device()))
+    return launches
+
+
 def lane_main(name: str, parent: int) -> int:
     """One lane, started by ``main``: dies with its parent, runs its
     phases and writes {"launches": {path: counts}, "phases": {key: s}}
@@ -3224,7 +3735,8 @@ def lane_main(name: str, parent: int) -> int:
     torch.set_num_threads(2)
     setup_torch()
     launches = {"sync_cnn": lane_sync_cnn, "translm": lane_translm,
-                "xlstm": lane_xlstm, "lm": lane_lm}[name]()
+                "xlstm": lane_xlstm, "lm": lane_lm,
+                "sharded": lane_sharded}[name]()
     tmp = LANE_DIR / f"{name}.json.tmp"
     tmp.write_text(json.dumps({"launches": launches,
                                "phases": PHASE_SECONDS, **LANE_RESULTS}))
@@ -3232,22 +3744,22 @@ def lane_main(name: str, parent: int) -> int:
     return 0
 
 
-def run_lanes(lanes):
-    """Start ``lanes``, wait for all of them, print their output in
-    order; returns their merged launch counts and phase seconds and the
-    sync and LM FedCore paths' (M, k) of kernels 2 and 3.  Any lane's
-    failure stops the others and fails the phase, as does the
-    deadline."""
+def run_children(argv):
+    """Start ``python3 chip_smoke.py *argv[name] PID`` for each name (a
+    lane or a rank, its output to ``build/chip_smoke/<name>.log``), wait
+    for all of them, print their output in order; any child's failure,
+    or ``LANE_DEADLINE_S``, stops the others.  Returns the names that
+    failed or were stopped."""
     procs, logs = {}, {}
     env = dict(os.environ, CHIP_SMOKE_T0=repr(T0))
     try:
-        for name in lanes:
+        for name, args in argv.items():
             logs[name] = open(LANE_DIR / f"{name}.log", "w")
             procs[name] = subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--lane",
-                 name, str(os.getpid())], cwd=ROOT, env=env,
+                [sys.executable, str(Path(__file__).resolve()), *args,
+                 str(os.getpid())], cwd=ROOT, env=env,
                 stdout=logs[name], stderr=subprocess.STDOUT)
-        log(f"  lane(s) {', '.join(lanes)} started")
+        log(f"  {', '.join(argv)} started")
         while True:
             codes = {n: p.poll() for n, p in procs.items()}
             failed = [n for n, c in codes.items() if c not in (None, 0)]
@@ -3256,7 +3768,7 @@ def run_lanes(lanes):
             if time.time() - T0 > LANE_DEADLINE_S:
                 failed = [n for n, c in codes.items() if c is None]
                 break
-            time.sleep(1.0)
+            time.sleep(0.5)
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -3264,13 +3776,22 @@ def run_lanes(lanes):
             p.wait()
         for f in logs.values():
             f.close()
-    for name in lanes:
-        log(f"-- lane {name} (exit {procs[name].returncode}):")
+    for name in argv:
+        log(f"-- {name} (exit {procs[name].returncode}):")
         sys.stdout.write((LANE_DIR / f"{name}.log").read_text())
         sys.stdout.flush()
+    return failed
+
+
+def run_lanes(lanes):
+    """Start ``lanes``, wait for all of them, print their output in
+    order; returns their merged launch counts and phase seconds and the
+    sync and LM FedCore paths' (M, k) of kernels 2 and 3.  Any lane's
+    failure stops the others and fails the phase, as does the
+    deadline."""
+    failed = run_children({name: ["--lane", name] for name in lanes})
     check(not failed, f"lane(s) {', '.join(failed)} failed or were stopped "
-          f"(exits {[procs[n].returncode for n in failed]}; deadline "
-          f"{LANE_DEADLINE_S:.0f} s)")
+          f"(deadline {LANE_DEADLINE_S:.0f} s)")
     by_path, phases, shapes = {}, {}, {"sync": [], "lm": []}
     for name in lanes:
         res = json.loads((LANE_DIR / f"{name}.json").read_text())
@@ -3332,9 +3853,15 @@ def main() -> int:
         f"{LM_LANES[0]}, alone: its GPU-bound prefill would stretch the "
         f"host-bound lanes' waits on the card")
     lm_path, lm_phases, lm_shapes = run_lanes(LM_LANES)
+    log(f"[{time.time() - T0:.0f} s] == phase 19 in lane "
+        f"{SHARDED_LANES[0]}, alone: its {SHARDED_RANKS} ranks are two more "
+        f"processes on the card")
+    sh_path, sh_phases, _ = run_lanes(SHARDED_LANES)
     by_path.update(lm_path)
+    by_path.update(sh_path)
     PHASE_SECONDS.update(lane_phases)
     PHASE_SECONDS.update(lm_phases)
+    PHASE_SECONDS.update(sh_phases)
     solve_shapes["lm"] += lm_shapes["lm"]
     with phase("kernels_sync", "2, continued: kernels 2 and 3 at the sync "
                "path's (M, K) of phase 3 and the LM FedCore path's of "
@@ -3375,6 +3902,8 @@ if __name__ == "__main__":
     try:
         if len(sys.argv) == 4 and sys.argv[1] == "--lane":
             sys.exit(lane_main(sys.argv[2], int(sys.argv[3])))
+        if len(sys.argv) == 5 and sys.argv[1] == "--rank":
+            sys.exit(sharded_rank_main(*map(int, sys.argv[2:])))
         sys.exit(main())
     except PhaseFailed as exc:
         print(f"chip_smoke.py: FAILED: {exc}", file=sys.stderr)

@@ -125,6 +125,20 @@ def _take_col(D: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(D, 2, idx[:, None, None].expand(c, m, 1))[..., 0]
 
 
+def _legacy_delta_sweep(D, d1, d2, vf, onehot):
+    """The pre-fusion Δ-sweep chain of the JAX package's
+    ``legacy_sweep``: the minimum, the one-hot and an einsum as three
+    passes over the (C, M, M) stack, in plain PyTorch (the selection
+    A/B's baseline).  Its d1 / d2 / nearest slot are the fused sweep's,
+    the values the reference's ``lax.top_k(-dm, 2)`` gives (ties to the
+    first index)."""
+    shift = torch.clamp_max(D - d1[..., None], 0.0) * vf[..., None]
+    A = torch.sum(shift, dim=1)
+    contrib = ((torch.minimum(D, d2[..., None]) - d1[..., None])
+               * vf[..., None] - shift)
+    return A, torch.einsum("cij,cil->cjl", contrib, onehot)
+
+
 def _build_swap(valid: torch.Tensor, k: int, max_sweeps: int, add_cost,
                 col_dists, medoid_dists, delta_sweep) -> KMedoidsResult:
     """BUILD + SWAP over a cohort, whatever holds the distances.
@@ -194,7 +208,8 @@ def _build_swap(valid: torch.Tensor, k: int, max_sweeps: int, add_cost,
 
 
 def _kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
-                      max_sweeps: int, use_kernel: bool) -> KMedoidsResult:
+                      max_sweeps: int, use_kernel: bool,
+                      legacy_sweep: bool) -> KMedoidsResult:
     D = D.float().contiguous()
     c, m = D.shape[0], D.shape[1]
     vf = valid.float().contiguous()          # (C, M) 1.0 on real samples
@@ -202,19 +217,26 @@ def _kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
     def medoid_dists(medoids):
         return torch.gather(D, 2, medoids[:, None, :].expand(c, m, k))
 
+    if legacy_sweep:
+        def delta_sweep(d1, d2, onehot):
+            return _legacy_delta_sweep(D, d1, d2, vf, onehot)
+    else:
+        def delta_sweep(d1, d2, onehot):
+            return kmedoids_delta_sweep(D, d1, d2, vf, onehot,
+                                        use_kernel=use_kernel)
+
     return _build_swap(
         valid, k, max_sweeps,
         add_cost=lambda d_near: kmedoids_build_cost(
             D, d_near, vf, use_kernel=use_kernel),
         col_dists=lambda idx: _take_col(D, idx),
-        medoid_dists=medoid_dists,
-        delta_sweep=lambda d1, d2, onehot: kmedoids_delta_sweep(
-            D, d1, d2, vf, onehot, use_kernel=use_kernel))
+        medoid_dists=medoid_dists, delta_sweep=delta_sweep)
 
 
 def kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
                      max_sweeps: int = 50,
-                     use_kernel: Optional[bool] = None) -> KMedoidsResult:
+                     use_kernel: Optional[bool] = None,
+                     legacy_sweep: bool = False) -> KMedoidsResult:
     """One masked k-medoids solve per client over a cohort stack.
 
     D: (C, M, M) distance stack; valid: (C, M) sample masks; ``k`` shared
@@ -223,10 +245,13 @@ def kmedoids_batched(D: torch.Tensor, valid: torch.Tensor, k: int,
     Callers must guarantee ``k <= valid[c].sum()`` per lane.  Converged
     lanes are fixed points of the sweep, so each lane's result equals its
     standalone solve.  ``use_kernel`` is the tri-state kernel switch
-    (``repro_torch.kernels.ops.resolve_use_kernel``)."""
+    (``repro_torch.kernels.ops.resolve_use_kernel``); ``legacy_sweep``
+    runs the pre-fusion sweep chain (the minimum / one-hot / einsum
+    passes) in plain PyTorch, the selection A/B's baseline."""
     return _kmedoids_batched(D, valid, min(int(k), D.shape[-1]),
                              int(max_sweeps),
-                             resolve_use_kernel(use_kernel, D.device))
+                             resolve_use_kernel(use_kernel, D.device),
+                             bool(legacy_sweep))
 
 
 # ---------------------------------------------------------------------------

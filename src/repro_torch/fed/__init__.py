@@ -6,6 +6,7 @@ from repro_torch.fed.cost import (  # noqa: F401  (leaf module: import first)
     CostPlan,
     WorkloadCostModel,
     resolve_cost,
+    workload_cost_model,
 )
 from repro_torch.fed.aggregators import (  # noqa: F401
     AGGREGATORS,

@@ -28,16 +28,19 @@ used before this module existed — every branch below short-circuits the
 ×1.0 so goldens, BENCH gates, and event-log determinism are preserved
 bit for bit.
 
-Measurement (per-workload step costs from compiled FLOPs) needs the
-fleet workloads and is not ported yet: this module holds the cost
-model, its conversions and the Alg. 1 plans only.
+Measurement: ``workload_cost_model`` prices a registered fleet
+workload by the FLOPs of one local-SGD step (``measure_step_cost``,
+counted by torch's ``FlopCounterMode``), relative to the mlp workload.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+import time
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 # forward-only pass cost relative to a full train step (fwd+bwd+update);
 # the §4.4 fallback charges the feature pass at this fraction
@@ -60,8 +63,9 @@ class WorkloadCostModel:
     ``cost_per_sample`` is the knob everything keys off: 1.0 is the
     legacy samples-are-the-unit mode; a measured model carries the
     workload's per-sample step cost relative to the reference workload.
-    ``flops_per_sample`` preserves the raw HLO FLOPs when the model came
-    from ``cost_analysis`` (None for legacy/wall-clock models).
+    ``flops_per_sample`` keeps the raw FLOPs a sample when the model came
+    from ``measure_step_cost``'s count (None for legacy / wall-clock
+    models).
     ``source`` ∈ {"legacy", "flops", "wallclock", "manual"}.
     """
     name: str = "unit"
@@ -164,3 +168,113 @@ def resolve_cost(cost: Any) -> WorkloadCostModel:
                                  cost_per_sample=float(cost),
                                  source="manual")
     raise TypeError(f"cannot resolve a cost model from {type(cost).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# measurement: FLOPs of one SGD step (primary), wall clock for a count of 0
+# ---------------------------------------------------------------------------
+
+def example_batch(workload, batch_size: int = 8) -> Dict[str, torch.Tensor]:
+    """A schema-shaped batch of zeros (and unit loss weights) on the CPU.
+
+    FLOP counts depend on shapes, not values, so zeros are enough, also
+    for the token fields (index 0 is a valid embedding row)."""
+    batch = {name: torch.zeros((batch_size,) + tuple(spec.shape),
+                               dtype=getattr(torch, spec.dtype))
+             for name, spec in workload.schema.items()}
+    batch["weights"] = torch.ones((batch_size,))
+    return batch
+
+
+def _sgd_step(model, params, batch, lr: float):
+    """One local-SGD step (forward, backward, update): the arithmetic
+    every fleet engine's inner loop runs."""
+    ps = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    total, _ = model.loss(ps, batch)
+    grads = torch.autograd.grad(total, list(ps.values()))
+    return {k: p - lr * g for (k, p), g in zip(ps.items(), grads)}
+
+
+def measure_step_cost(model, batch, lr: float = 0.05,
+                      timing_reps: int = 5) -> Tuple[float, str]:
+    """(per-sample step cost, source) for one model on one example batch.
+
+    Primary: the FLOPs of one SGD step as torch's ``FlopCounterMode``
+    counts them, run on meta copies of the params and the batch: nothing
+    is computed, and the count follows the shapes through the models'
+    plain arithmetic, whatever the batch's device (a kernel launched
+    through ``ctypes`` would be invisible to the counter, so the count
+    never depends on what implements the work).  The JAX package counts
+    its compiled step's HLO FLOPs instead, so the two packages' values
+    differ; their order across workloads is what the budgets use.
+    Fallback, for a step the counter sees no FLOPs in: the min wall time
+    of ``timing_reps`` steps on the batch's device.  Either way the value
+    is per *sample*, so dividing two workloads' costs cancels the unit.
+    """
+    n = int(next(iter(batch.values())).shape[0])
+    params = model.init(torch.Generator().manual_seed(0), "cpu")
+    with FlopCounterMode(display=False) as counter:
+        _sgd_step(model, {k: v.to("meta") for k, v in params.items()},
+                  {k: v.to("meta") for k, v in batch.items()}, lr)
+    flops = counter.get_total_flops()
+    if flops > 0:
+        return flops / n, "flops"
+    dev = next(iter(batch.values())).device
+    params = {k: v.to(dev) for k, v in params.items()}
+    _sgd_step(model, params, batch, lr)           # warm up
+    best = float("inf")
+    for _ in range(max(1, timing_reps)):
+        t0 = time.perf_counter()
+        _sgd_step(model, params, batch, lr)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        best = min(best, time.perf_counter() - t0)
+    return best / n, "wallclock"
+
+
+_MEASURED: Dict[Tuple[str, int], Tuple[float, str]] = {}
+
+
+def _measured_workload_cost(workload, batch_size: int,
+                            lr: float) -> Tuple[float, str]:
+    key = (workload.name, batch_size)
+    if key not in _MEASURED:
+        _MEASURED[key] = measure_step_cost(
+            workload, example_batch(workload, batch_size), lr=lr)
+    return _MEASURED[key]
+
+
+def workload_cost_model(workload, batch_size: int = 8, *,
+                        relative_to: Any = "mlp",
+                        lr: float = 0.05) -> WorkloadCostModel:
+    """Measure a registered workload's cost model.
+
+    ``workload`` is a ``FleetWorkload`` or a registry name.  Costs are
+    normalized by ``relative_to``: a registry name (measured the same
+    way; default ``"mlp"``, the original fleet workload whose samples the
+    legacy capability unit priced at 1.0), a number, or None for raw
+    per-sample units.  Measurements are cached per (workload,
+    batch_size), so repeated calls measure nothing again."""
+    from repro_torch.fed.fleet.workloads import get_workload
+    if isinstance(workload, str):
+        workload = get_workload(workload)
+    value, source = _measured_workload_cost(workload, batch_size, lr)
+    if isinstance(relative_to, str):
+        ref = get_workload(relative_to)
+        ref_value, ref_source = _measured_workload_cost(ref, batch_size, lr)
+        if ref_source != source:
+            # never mix FLOPs with seconds: re-measure both by wall clock
+            value, source = measure_step_cost(
+                workload, example_batch(workload, batch_size), lr=lr,
+                timing_reps=5)
+            ref_value, _ = measure_step_cost(
+                ref, example_batch(ref, batch_size), lr=lr, timing_reps=5)
+    elif relative_to is None:
+        ref_value = 1.0
+    else:
+        ref_value = float(relative_to)
+    return WorkloadCostModel(
+        name=workload.name,
+        cost_per_sample=value / ref_value,
+        flops_per_sample=value if source == "flops" else None,
+        source=source)

@@ -1,5 +1,6 @@
 """The fleet runtime: cohort groups run batched (vmap over the client
-axis) or one client at a time, on the port's fleet workloads; the named
+axis), sharded over the ranks of a process group, or one client at a
+time, on the port's fleet workloads; the named
 heterogeneity scenarios that drive the sync, async, fleet and async
 fleet runtimes; the event-driven async fleet engine and its merge rules;
 and the fault axis."""
@@ -43,6 +44,10 @@ from repro_torch.fed.fleet.scenarios import (  # noqa: F401
 from repro_torch.fed.fleet.scheduler import (  # noqa: F401
     AdaptiveParticipation,
     ParticipationConfig,
+)
+from repro_torch.fed.fleet.sharded import (  # noqa: F401
+    ShardedFleetEngine,
+    client_mesh,
 )
 from repro_torch.fed.fleet.workloads import (  # noqa: F401
     WORKLOADS,

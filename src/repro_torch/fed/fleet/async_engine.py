@@ -50,8 +50,10 @@ Checkpoints are taken between flush windows, never on a partial flush:
 the params and every pinned dispatch snapshot in one npz, the virtual
 clock, buffers, logs, counters, RNG and scheduler state in its JSON
 meta, so a resumed run replays the continuation wave and every later
-event byte for byte.  Not ported yet: ``engine="sharded"`` (ROADMAP item
-15), which raises ``NotImplementedError``.
+event byte for byte.  ``engine="sharded"`` runs each flush's groups
+split across the ranks of a process group, each group's
+coefficient-weighted parameter sum all-reduced
+(``repro_torch.fed.fleet.sharded``).
 """
 from __future__ import annotations
 
@@ -62,6 +64,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import (load_server_meta, load_server_state,
                                     save_server_state)
@@ -79,7 +82,8 @@ from repro_torch.fed.server import RoundRecord, make_eval_fn
 from repro_torch.fed.simulator import (CapabilityTrace, ClientSpec,
                                        DispatchTraceIndexer, TraceConfig,
                                        straggler_deadline)
-from repro_torch.obs import active_recorder
+from repro_torch.obs import (NULL_RECORDER, active_recorder, get_recorder,
+                             use_recorder)
 from repro_torch.utils.tree import tree_add, tree_scale
 
 ClientData = Dict[str, np.ndarray]
@@ -331,10 +335,16 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
     """Drive the fleet's group programs through the async event loop.
 
     ``engine`` is ``"batched"`` (vmapped cohort groups, one dispatch a
-    group) or ``"loop"`` (the per-client reference: the same arithmetic,
-    one step call per mini-batch).  ``engine_obj`` is a caller-built
-    ``FleetEngine`` whose config and device the run then uses (a warm
-    engine across runs).  ``device=None`` means the CUDA card; pass
+    group), ``"loop"`` (the per-client reference: the same arithmetic,
+    one step call per mini-batch) or ``"sharded"`` (each group's clients
+    split across the ranks of the default process group, every rank
+    running this same event loop, and each group's coefficient-weighted
+    parameter sum arriving all-reduced; without a process group of more
+    than one rank it runs batched, and ``engine_mode`` says so).
+    ``engine_obj`` is a caller-built ``FleetEngine`` (a
+    ``ShardedFleetEngine`` for a sharded run) whose config and device the
+    run then uses (a warm engine across runs).  ``device=None`` means the
+    CUDA card (on a sharded run ``cuda:<LOCAL_RANK>``); pass
     ``device="cpu"`` to run on the CPU.  ``init_params`` (a flat dict)
     defaults to ``model.init`` from a ``torch.Generator`` seeded with
     ``cfg.seed``.
@@ -354,30 +364,44 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
     loop every N applied flushes (``save_checkpoint``); ``resume=True``
     restores the latest snapshot, its tensors on this run's device, and
     continues byte for byte as the uninterrupted run: the same params,
-    history and event log.
-
-    Not ported yet: ``engine="sharded"`` (ROADMAP item 15), which raises
-    ``NotImplementedError``."""
-    if engine == "sharded":
-        raise NotImplementedError(
-            "the sharded fleet engine is not ported yet: ROADMAP item 15")
-    if engine not in ("batched", "loop"):
+    history and event log.  On a sharded run rank 0 alone writes the
+    checkpoints and the recorder's sinks, and every rank reads the
+    checkpoint after a barrier."""
+    call = dict(locals())
+    if engine not in ("batched", "loop", "sharded"):
         raise ValueError(f"unknown async fleet engine {engine!r} "
-                         f"(expected batched | loop)")
+                         f"(expected batched | loop | sharded)")
     wall0 = _time.perf_counter()
     n = len(specs)
     if n == 0:
         raise ValueError("run_async_fleet needs at least one client")
     mode = engine
+    if engine == "sharded":
+        from repro_torch.fed.fleet.sharded import (ShardedFleetEngine,
+                                                   rank_device, world_size)
+        if world_size() == 1:   # one rank: sharding is pure overhead
+            mode = "batched"
+        elif dist.get_rank() != 0 and get_recorder().enabled:
+            with use_recorder(NULL_RECORDER):   # rank 0 alone records
+                return run_async_fleet(**call)
+        elif (engine_obj is not None
+              and not isinstance(engine_obj, ShardedFleetEngine)):
+            raise ValueError("a sharded run needs a ShardedFleetEngine as "
+                             "engine_obj")
     if engine_obj is not None:
         eng = engine_obj
         if device is not None and resolve_device(device) != eng.device:
             raise ValueError(f"run_async_fleet on {device} but engine_obj "
                              f"runs on {eng.device}")
         dev = eng.device
+    elif mode == "sharded":
+        dev = rank_device(device)
+        eng = ShardedFleetEngine(model, cfg.fleet_config(), device=dev)
     else:
         dev = resolve_device(device)
         eng = FleetEngine(model, cfg.fleet_config(), device=dev)
+    lead = mode != "sharded" or eng.rank == 0
+    n_devices = eng.n_devices if mode == "sharded" else 1
     fcfg = eng.cfg
     rule = as_merge_rule(aggregator)
     rng = np.random.default_rng(cfg.seed)
@@ -406,14 +430,14 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
     busy = np.zeros(n, bool)
     busy_time = np.zeros(n)
     tracei = DispatchTraceIndexer(n, trace)
-    obs = active_recorder(verbose)
+    obs = active_recorder(verbose and lead)
     obs.run_meta(runtime="async_fleet", engine=mode,
                  requested_engine=engine, aggregator=rule.name,
                  faults=fault_name, n_clients=n,
                  max_updates=cfg.max_updates,
                  buffer_k=buffer_k, concurrency=concurrency,
-                 deadline=float(deadline), seed=cfg.seed, n_devices=1,
-                 device=str(dev))
+                 deadline=float(deadline), seed=cfg.seed,
+                 n_devices=n_devices, device=str(dev))
 
     queue = EventQueue()
     event_log: List[str] = []
@@ -514,7 +538,8 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
                 grouped.append((v0, groups))
 
         # one group program per group; each adds its coefficient-weighted
-        # parameter sum (one tensordot a leaf), no host-side client loop
+        # parameter sum (one tensordot a leaf, all-reduced on the sharded
+        # mesh), no host-side client loop
         acc = None
         stack_parts = []        # (per-client stack, cids): robust path
         n_corrupted = 0
@@ -527,9 +552,14 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
                 for g in groups:
                     w = np.array([coef[int(cid)] for cid in g.cids],
                                  np.float64)
-                    p, losses, _ = eng.run_group(
-                        params=base, group=g, batched=(mode == "batched"))
                     part = None
+                    if mode == "sharded":
+                        part, _, losses, _, p = eng.run_group_sharded(
+                            base, g, w, gather_stack=use_stack)
+                    else:
+                        p, losses, _ = eng.run_group(
+                            params=base, group=g,
+                            batched=(mode == "batched"))
                     if use_stack:
                         if corruption:
                             ords = np.array(
@@ -538,10 +568,11 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
                                                     ftrace, layouts)
                             n_corrupted += nc
                         if rule.robust:
+                            part = None
                             stack_parts.append((p, np.asarray(g.cids)))
                         else:       # linear rule over corrupted lanes
                             part = weighted_param_sum(p, w)
-                    else:
+                    elif part is None:
                         part = weighted_param_sum(p, w)
                     if part is not None:
                         acc = part if acc is None else tree_add(acc, part)
@@ -648,7 +679,8 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
         # the continuation wave has not fired yet, so a resumed run
         # replays the wave and the next window byte for byte
         if (checkpoint_dir is not None and checkpoint_every > 0
-                and not partial and applied % checkpoint_every == 0):
+                and not partial and applied % checkpoint_every == 0
+                and lead):
             save_checkpoint(t)
         if applied < cfg.max_updates and not partial:
             # the run continues: open the next flush window
@@ -705,6 +737,8 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
             save_server_state(checkpoint_dir, applied, tree, extra=meta)
 
     if resume and checkpoint_dir is not None:
+        if mode == "sharded":       # rank 0 may still be writing
+            dist.barrier(group=eng.group)
         tree, _ = load_server_state(checkpoint_dir, device=dev)
         meta = load_server_meta(checkpoint_dir)
         if tree is not None and meta is not None \
@@ -890,6 +924,6 @@ def run_async_fleet(model, clients_data: Sequence[ClientData],
         "applied": applied,
         "event_log": event_log,
         "telemetry": telemetry,
-        "n_devices": 1,
+        "n_devices": n_devices,
         "strategy": "fedcore_async_fleet",
     }

@@ -31,8 +31,8 @@ The JAX package compiles each group into one jitted program with donated
 buffers; PyTorch runs eagerly and has no counterpart of either, so
 ``dispatch_count`` counts one dispatch per group (one per step on the
 loop path) as the reference does, and its program-cache counters have no
-counterpart here.  Not ported yet: ``engine="sharded"`` (ROADMAP item
-15), which raises ``NotImplementedError``.
+counterpart here.  ``engine="sharded"`` splits each group's clients
+across the ranks of a process group (``repro_torch.fed.fleet.sharded``).
 """
 from __future__ import annotations
 
@@ -42,11 +42,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import grad_and_value, vmap
 
 from repro_torch.checkpoint import (load_server_meta, load_server_state,
                                     save_server_state)
-from repro_torch.core.coreset import build_coreset_batched
+from repro_torch.core.coreset import Coreset, build_coreset_batched
+from repro_torch.core.kmedoids import kmedoids_batched
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fed.cost import resolve_cost
 from repro_torch.fed.aggregators import ROBUST_METHODS, robust_combine
@@ -57,7 +59,9 @@ from repro_torch.fed.server import RoundRecord, make_eval_fn
 from repro_torch.fed.simulator import (CapabilityTrace, ClientSpec,
                                        DispatchTraceIndexer, TraceConfig,
                                        straggler_deadline)
-from repro_torch.obs import active_recorder, get_recorder
+from repro_torch.kernels.ops import pairwise_l2_batched
+from repro_torch.obs import (NULL_RECORDER, active_recorder, get_recorder,
+                             use_recorder)
 
 Params = Dict[str, torch.Tensor]
 ClientData = Dict[str, np.ndarray]
@@ -291,17 +295,29 @@ class FleetEngine:
             p, loss = self._vm_sgd_step(p, data, w, idx[:, t])
         return p, loss
 
-    def _run_group_stacked(self, params: Params, group: CohortGroup):
+    def _group_features(self, params: Params,
+                        data: Dict[str, torch.Tensor], c: int
+                        ) -> torch.Tensor:
+        """The (C, M, F) feature stack of a group's C clients, one
+        client's pass at a time (``_features``)."""
+        return torch.stack([
+            self._features(params, {f: v[i] for f, v in data.items()})
+            for i in range(c)])
+
+    def _run_group_stacked(self, params: Params, group: CohortGroup,
+                           **span):
         """All clients of a group at once; returns (params (C, ...),
         losses (C,), medoid indices (C, k) or None).  The losses and
         medoids come back to the host inside the group's span, so the
-        span ends when the group's work on the device does."""
+        span ends when the group's work on the device does.  ``span``
+        overrides or adds span attributes (the sharded engine's whole
+        group size and ``sharded=True``)."""
         cfg = self.cfg
         obs = get_recorder()
         c = group.n_clients
         self.count_dispatch()
         name = "local_sgd" if group.k == 0 else "coreset_group"
-        with obs.span(name, k=group.k, n_clients=c):
+        with obs.span(name, **{"k": group.k, "n_clients": c, **span}):
             data = {f: self._to_device(v) for f, v in group.data.items()}
             w = self._to_device(group.valid.astype(np.float32))   # (C, M)
             p0 = {k: v.expand((c,) + v.shape) for k, v in params.items()}
@@ -313,10 +329,7 @@ class FleetEngine:
             # batched coreset selection, one full-set epoch, E−1 coreset
             # epochs
             with obs.span("grad_features", k=group.k, n_clients=c):
-                feats = torch.stack([
-                    self._features(params,
-                                   {f: v[i] for f, v in data.items()})
-                    for i in range(c)])                           # (C, M, F)
+                feats = self._group_features(params, data, c)     # (C, M, F)
             with obs.span("selection", k=group.k, n_clients=c):
                 coreset = self._select(feats, self._to_device(group.valid),
                                        group.k)
@@ -389,6 +402,47 @@ class FleetEngine:
         return (stacked, np.array(losses),
                 np.stack(meds) if meds else None)
 
+    def select_group_coresets(self, params: Params, group: CohortGroup,
+                              fused: bool = True) -> Tuple[Coreset, int]:
+        """Run one straggler group's selection phase; returns (``Coreset``
+        of stacked fields, dispatches issued).
+
+        ``fused=True`` is the engine's own selection, one dispatch: the
+        features, then ``_select`` (distance-free at M >=
+        ``materialize_below``, no (C, M, M) stack; the batched pairwise
+        kernel and the D-input solver below it).  ``fused=False`` replays
+        the pre-fusion chain of three dispatches as the selection A/B's
+        baseline: the features, the plain batched pairwise distances
+        (self-distances zeroed in the same call) and the legacy-sweep
+        k-medoids on the plain reductions, with the host between them.
+        """
+        if group.k == 0:
+            raise ValueError("group has no selection phase (k == 0)")
+        cfg = self.cfg
+        obs = get_recorder()
+        c = group.n_clients
+        data = {f: self._to_device(v) for f, v in group.data.items()}
+        valid = self._to_device(group.valid)
+        if fused:
+            self.count_dispatch()
+            with obs.span("selection", k=group.k, n_clients=c, fused=True):
+                coreset = self._select(self._group_features(params, data, c),
+                                       valid, group.k)
+            return coreset, 1
+        with obs.span("grad_features", k=group.k):
+            feats = self._group_features(params, data, c)       # dispatch 1
+        with obs.span("distances", k=group.k):
+            D = pairwise_l2_batched(feats, squared=False,       # dispatch 2
+                                    use_kernel=False, zero_diag=True)
+        with obs.span("selection", k=group.k, fused=False):
+            res = kmedoids_batched(D, valid, group.k,           # dispatch 3
+                                   max_sweeps=cfg.max_sweeps,
+                                   use_kernel=False, legacy_sweep=True)
+        self.count_dispatch(3)
+        return Coreset(indices=res.medoids, weights=res.weights.float(),
+                       objective=res.objective,
+                       assignment=res.assignment), 3
+
 
 def weighted_param_sum(stacked: Params, weights) -> Params:
     """Σ_c w_c · p_c over a (C, ...) parameter stack: one tensordot per
@@ -432,9 +486,12 @@ def run_fleet_round(engine: FleetEngine, params: Params,
                     ) -> Tuple[Params, FleetRoundStats]:
     """Execute one cohort round; returns (aggregated params, stats).
 
-    ``mode`` is ``"batched"`` (vmapped cohort groups) or ``"loop"``
-    (per-client reference).  An empty cohort yields the round-start
-    params and zero-length stats.
+    ``mode`` is ``"batched"`` (vmapped cohort groups), ``"loop"``
+    (per-client reference) or ``"sharded"`` (``engine`` must be a
+    ``repro_torch.fed.fleet.sharded.ShardedFleetEngine``: groups run
+    data-parallel over the mesh's client dim, each group's weighted sum
+    all-reduced).  An empty cohort yields the round-start params and
+    zero-length stats.
 
     ``aggregator`` is the server combine rule (``"weighted_mean"`` or a
     robust rule, which combines the engines' per-client parameter
@@ -444,7 +501,7 @@ def run_fleet_round(engine: FleetEngine, params: Params,
     untouched; ``dispatch_ordinals`` maps cid → that client's dispatch
     ordinal for the per-(client, dispatch) fault draws (default 0;
     ``run_fleet`` passes the dispatch cursors)."""
-    if mode not in ("batched", "loop"):
+    if mode not in ("batched", "loop", "sharded"):
         raise ValueError(f"unknown fleet execution mode {mode!r}")
     if aggregator != "weighted_mean" and aggregator not in ROBUST_METHODS:
         raise ValueError(f"unknown fleet aggregator {aggregator!r} "
@@ -474,8 +531,16 @@ def run_fleet_round(engine: FleetEngine, params: Params,
                           for c, o in zip(g.cids, ords)], bool)
                 if has_dropout else np.zeros(g.n_clients, bool))
         w_eff = np.where(drop, 0.0, w)
-        stack, losses, meds = engine.run_group(params, g,
-                                               batched=(mode == "batched"))
+        if mode == "sharded":
+            part, wsum, losses, meds, stack = engine.run_group_sharded(
+                params, g, w_eff, gather_stack=needs_stack)
+            if not needs_stack:
+                partials.append((part, wsum))
+        else:
+            stack, losses, meds = engine.run_group(
+                params, g, batched=(mode == "batched"))
+            if not needs_stack:
+                partials.append((stack, w_eff))
         corrupt = np.zeros(g.n_clients, bool)
         if needs_stack:
             if has_corruption:
@@ -483,8 +548,6 @@ def run_fleet_round(engine: FleetEngine, params: Params,
                                            faults, layouts)
                 corrupt = faults.byzantine[np.asarray(g.cids, np.int64)]
             stacks.append((stack, w_eff, drop))
-        else:
-            partials.append((stack, w_eff))
         all_cids.append(g.cids)
         all_m.append(g.m)
         all_b.append(g.m if g.k == 0 else np.full(g.n_clients, g.k))
@@ -504,6 +567,8 @@ def run_fleet_round(engine: FleetEngine, params: Params,
                 for leaf in entry[0].values()))
         if needs_stack:
             new_params = _robust_groups(stacks, aggregator, params, layouts)
+        elif mode == "sharded":
+            new_params = engine.combine_group_sums(partials, fallback=params)
         else:
             new_params = _aggregate_groups(partials, fallback=params)
     medoids: Dict[int, np.ndarray] = {}
@@ -562,16 +627,20 @@ def run_fleet(model, clients_data: Sequence[ClientData],
     ``model`` is anything exposing the FL model interface, including a
     ``repro_torch.fed.fleet.workloads.FleetWorkload``; ``clients_data``
     the matching list of per-client field dicts.  ``engine`` is
-    ``"batched"`` (vmapped cohort groups) or ``"loop"`` (the per-client
-    reference).  ``scheduler`` (an ``AdaptiveParticipation`` or anything
+    ``"batched"`` (vmapped cohort groups), ``"loop"`` (the per-client
+    reference) or ``"sharded"`` (``repro_torch.fed.fleet.sharded``: each
+    group's clients split across the ranks of the default process group,
+    every rank running this same driver; without a process group of more
+    than one rank it runs batched, and the result's ``engine_mode`` says
+    so).  ``scheduler`` (an ``AdaptiveParticipation`` or anything
     with its select / budget / observe / record_round protocol) picks
     each round's cohort and its budgets from observed capability;
     without one every client takes part with nominal-capability budgets.
     ``trace`` perturbs each (client, dispatch)'s realized duration as the
-    sync server does.  ``device=None`` means the CUDA card; pass
-    ``device="cpu"`` to run on the CPU.  ``init_params`` (a flat dict)
-    defaults to ``model.init`` from a ``torch.Generator`` seeded with
-    ``cfg.seed``.
+    sync server does.  ``device=None`` means the CUDA card (on a sharded
+    run ``cuda:<LOCAL_RANK>``); pass ``device="cpu"`` to run on the CPU.
+    ``init_params`` (a flat dict) defaults to ``model.init`` from a
+    ``torch.Generator`` seeded with ``cfg.seed``.
 
     ``faults`` (a ``repro_torch.fed.fleet.faults`` profile name,
     ``FaultProfile`` or None) injects dropout, churn and Byzantine
@@ -587,19 +656,30 @@ def run_fleet(model, clients_data: Sequence[ClientData],
     ``repro_torch.checkpoint``; ``resume=True`` restores the latest
     checkpoint, its params on this run's device, and continues byte for
     byte as the uninterrupted run: everything else (capability trace,
-    fault draws, cohort grouping) is a pure function of the seed.
-
-    Not ported yet: ``engine="sharded"`` (ROADMAP item 15), which raises
-    ``NotImplementedError``.
+    fault draws, cohort grouping) is a pure function of the seed.  On a
+    sharded run rank 0 alone writes the checkpoints and the recorder's
+    sinks, and every rank reads the checkpoint after a barrier.
     """
-    if engine == "sharded":
-        raise NotImplementedError(
-            "the sharded fleet engine is not ported yet: ROADMAP item 15")
-    if engine not in ("batched", "loop"):
+    call = dict(locals())
+    if engine not in ("batched", "loop", "sharded"):
         raise ValueError(f"unknown fleet engine {engine!r} "
-                         f"(expected batched | loop)")
-    dev = resolve_device(device)
-    eng = FleetEngine(model, cfg, device=dev)
+                         f"(expected batched | loop | sharded)")
+    mode = engine
+    if engine == "sharded":
+        from repro_torch.fed.fleet.sharded import (ShardedFleetEngine,
+                                                   rank_device, world_size)
+        if world_size() == 1:   # one rank: sharding is pure overhead
+            mode = "batched"
+        elif dist.get_rank() != 0 and get_recorder().enabled:
+            with use_recorder(NULL_RECORDER):   # rank 0 alone records
+                return run_fleet(**call)
+    if mode == "sharded":
+        dev = rank_device(device)
+        eng = ShardedFleetEngine(model, cfg, device=dev)
+    else:
+        dev = resolve_device(device)
+        eng = FleetEngine(model, cfg, device=dev)
+    lead = mode != "sharded" or eng.rank == 0
     if init_params is None:
         init_params = model.init(torch.Generator().manual_seed(cfg.seed),
                                  dev)
@@ -616,17 +696,20 @@ def run_fleet(model, clients_data: Sequence[ClientData],
     # (client, dispatch), as in the sync server
     tracei = DispatchTraceIndexer(len(specs), cap_trace)
     ftrace, fault_name = make_fault_trace(faults, len(specs), cfg.seed)
-    obs = active_recorder(verbose)
-    obs.run_meta(runtime="fleet", engine=engine, requested_engine=engine,
+    n_devices = eng.n_devices if mode == "sharded" else 1
+    obs = active_recorder(verbose and lead)
+    obs.run_meta(runtime="fleet", engine=mode, requested_engine=engine,
                  n_clients=len(specs), rounds=rounds,
                  deadline=float(deadline), seed=cfg.seed,
-                 aggregator=cfg.aggregator, faults=fault_name, n_devices=1,
-                 device=str(dev))
+                 aggregator=cfg.aggregator, faults=fault_name,
+                 n_devices=n_devices, device=str(dev))
 
     history: List[RoundRecord] = []
     cohort_sizes: List[int] = []
     start_round = 0
     if resume and checkpoint_dir is not None:
+        if mode == "sharded":       # rank 0 may still be writing
+            dist.barrier(group=eng.group)
         ck_params, ck_round = load_server_state(checkpoint_dir, like=params)
         if ck_params is not None and ck_round >= 0:
             meta = load_server_meta(checkpoint_dir) or {}
@@ -669,7 +752,7 @@ def run_fleet(model, clients_data: Sequence[ClientData],
         # before the trace accounting below advances them
         ordinals = {int(c): int(tracei.counts[c]) for c in cohort}
         params, stats = run_fleet_round(eng, params, clients_data, cohort,
-                                        budgets, round_seed=r, mode=engine,
+                                        budgets, round_seed=r, mode=mode,
                                         aggregator=cfg.aggregator,
                                         faults=ftrace,
                                         dispatch_ordinals=ordinals)
@@ -718,8 +801,8 @@ def run_fleet(model, clients_data: Sequence[ClientData],
         history.append(rec)
         cohort_sizes.append(len(cohort))
         obs.span_end(rspan)
-        obs.event("round", runtime="fleet", engine=engine,
-                  label=f"fleet/{engine}", round=r,
+        obs.event("round", runtime="fleet", engine=mode,
+                  label=f"fleet/{mode}", round=r,
                   n_participants=len(cohort), n_dropped=n_fault_dropped,
                   n_corrupted=n_corrupted,
                   n_coreset=rec.n_coreset, n_violations=n_violations,
@@ -734,7 +817,7 @@ def run_fleet(model, clients_data: Sequence[ClientData],
                   violated=[bool(d > deadline * (1.0 + 1e-9))
                             for d in durations])
         if checkpoint_dir is not None and checkpoint_every > 0 \
-                and (r + 1) % checkpoint_every == 0:
+                and (r + 1) % checkpoint_every == 0 and lead:
             with obs.span("checkpoint", round=r):
                 extra = {
                     "kind": "fleet",
@@ -751,7 +834,9 @@ def run_fleet(model, clients_data: Sequence[ClientData],
         "params": params,
         "history": history,
         "deadline": deadline,
-        "engine": engine,
+        "engine": engine,           # requested
+        "engine_mode": mode,        # executed (sharded may run batched)
+        "n_devices": n_devices,
         "cohort_sizes": cohort_sizes,
         "aggregator": cfg.aggregator,
         "faults": fault_name,

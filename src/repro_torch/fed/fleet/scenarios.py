@@ -24,10 +24,8 @@ comparable across scenarios):
 Runtimes: ``"sync"`` (``run_federated`` with ``FedCore``), ``"async"``
 (``run_federated_async`` with ``FedCore``), ``"fleet"`` (``run_fleet``)
 and ``"async_fleet"`` (``run_async_fleet``), the fleet ones with engines
-``batched`` and ``loop``, each with the fault axis and the robust
-aggregators.  Not ported yet: ``fleet_engine="sharded"`` (ROADMAP item
-15), which ``run_fleet`` and ``run_async_fleet`` raise as
-``NotImplementedError``.
+``batched``, ``loop`` and ``sharded``, each with the fault axis and the
+robust aggregators.
 """
 from __future__ import annotations
 
@@ -146,7 +144,9 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
     (``run_fleet``) or ``"async_fleet"`` (``run_async_fleet``: a flush
     every ``clients_per_round`` completions, ``max_updates`` flushes,
     default ``rounds``, with at least ``clients_per_round`` clients in
-    flight); ``fleet_engine`` is ``"batched"`` or ``"loop"``.
+    flight); ``fleet_engine`` is ``"batched"``, ``"loop"`` or
+    ``"sharded"`` (the ranks of the default process group; batched
+    without one).
     Each consumes the same specs and capability trace from the registry,
     so a scenario means the same fleet in each.  ``use_kernel`` is the
     tri-state kernel switch of the coreset selection, threaded into the
@@ -170,9 +170,6 @@ def run_scenario(name: str, runtime: str, model=None, clients_data=None,
     ``"sync_mean"``) or an ``Aggregator``; the async fleet runtime the
     merge rules' names (``repro_torch.fed.fleet.ASYNC_MERGES``), a merge
     rule or a streaming aggregator (see ``as_merge_rule``).
-
-    Not ported yet: ``fleet_engine="sharded"`` (ROADMAP item 15), which
-    the fleet runtimes raise as ``NotImplementedError``.
     """
     from repro_torch.core.coreset import FedCoreConfig
     from repro_torch.fed.aggregators import (AGGREGATORS, ROBUST_METHODS,

@@ -492,6 +492,54 @@ def test_short_fleet_run_goes_through_the_fleet_kernels(cuda):
 
 
 
+def test_one_rank_sharded_engine_matches_batched(cuda, tmp_path):
+    """An explicit ``ShardedFleetEngine`` on a one-rank NCCL group against
+    the batched engine on the card, on the CNN fleet with groups on both
+    sides of the M = 256 cutover: the whole sharded path (padding, the
+    all-reduce, the gathers) through the fleet kernels, the same medoids
+    and params within 1e-5."""
+    import torch.distributed as dist
+
+    from repro_torch.fed.fleet import (FleetConfig, FleetEngine,
+                                       ShardedFleetEngine, client_mesh,
+                                       get_workload, nominal_budgets,
+                                       run_fleet_round)
+    from repro_torch.fed.simulator import (make_client_specs,
+                                           straggler_deadline)
+
+    wl = get_workload("cnn")
+    clients = wl.make_clients(n_clients=24, seed=0, mean_samples=120.0,
+                              std_samples=90.0)
+    specs = make_client_specs([len(d["y"]) for d in clients],
+                              np.random.default_rng(0))
+    cfg = FleetConfig(epochs=2, batch_size=8, lr=0.05)
+    budgets = nominal_budgets(specs, straggler_deadline(specs, 2, 50.0), 2)
+    cids = list(range(len(clients)))
+    params = wl.init(torch.Generator().manual_seed(0), cuda)
+    pb, sb = run_fleet_round(FleetEngine(wl, cfg, device=cuda), params,
+                             clients, cids, budgets)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            store=dist.FileStore(str(tmp_path / "store"), 1))
+    try:
+        ops.reset_launch_counts()
+        eng = ShardedFleetEngine(wl, cfg, mesh=client_mesh(devices=[cuda]),
+                                 device=cuda)
+        ps, ss = run_fleet_round(eng, params, clients, cids, budgets,
+                                 mode="sharded")
+    finally:
+        dist.destroy_process_group()
+    for name in ("pairwise_l2_batched", "build_cost_from_feats",
+                 "delta_sweep_from_feats", "build_cost", "delta_sweep"):
+        assert ops.LAUNCHES[name] > 0, ops.LAUNCHES
+    assert sb.used_coreset.sum() > 0 and sorted(ss.medoids) == \
+        sorted(sb.medoids)
+    for cid in sb.medoids:
+        np.testing.assert_array_equal(ss.medoids[cid], sb.medoids[cid])
+    for k in pb:
+        assert ps[k].device.type == "cuda"
+        torch.testing.assert_close(ps[k], pb[k], rtol=0, atol=1e-5)
+
+
 def test_short_async_fleet_run_matches_its_plain_twin(cuda):
     """Two flushes of the batched async fleet engine on the CNN workload
     (every client in flight, so the flush groups fall on both sides of

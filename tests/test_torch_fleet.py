@@ -24,8 +24,8 @@ Also here: the cohort grouping, the nominal budgets and the adaptive
 scheduler's select / budget sequences, which must equal the reference's
 exactly, the port's JSONL passing the reference's schema, a fault
 profile and a robust aggregator against the reference, the sharded
-engine (not ported yet) raising ``NotImplementedError``, and the
-checkpoint arguments at work.
+engine running batched without a process group, and the checkpoint
+arguments at work.
 """
 import numpy as np
 import pytest
@@ -270,9 +270,10 @@ def test_port_fleet_jsonl_passes_reference_schema():
 
 
 def test_not_ported_arguments_raise(tmp_path):
-    """``engine="sharded"`` raises (ROADMAP item 15); the checkpoint
-    arguments work: a checkpoint file appears and ``resume`` continues
-    from it."""
+    """``engine="sharded"`` without a process group runs the batched
+    engine and says so (``engine_mode``); the checkpoint arguments work:
+    a checkpoint file appears and ``resume`` continues from it; unknown
+    engines and aggregators raise."""
     _, train, _, specs, _ = _bundle("mlp")
     wl = get_workload("mlp")
     tspecs = [ClientSpec(s.cid, s.m, s.c) for s in specs]
@@ -282,8 +283,10 @@ def test_not_ported_arguments_raise(tmp_path):
         return run_fleet(wl, train, tspecs, cfg, rounds, device="cpu",
                          **kwargs)
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run(engine="sharded")
+    sharded, batched = run(engine="sharded"), run()
+    assert (sharded["engine"], sharded["engine_mode"]) == ("sharded",
+                                                           "batched")
+    assert sharded["history"] == batched["history"]
     d = str(tmp_path / "fleet")
     run(checkpoint_dir=d, checkpoint_every=1)
     assert latest_checkpoint(d).endswith("ckpt_000000.npz")
@@ -303,8 +306,9 @@ def test_not_ported_arguments_raise(tmp_path):
                              concurrency=3, epochs=1),
             device="cpu", **kwargs)
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run_async(engine="sharded")
+    sharded, batched = run_async(engine="sharded"), run_async()
+    assert sharded["engine_mode"] == "batched"
+    assert sharded["event_log"] == batched["event_log"]
     d = str(tmp_path / "async_fleet")
     run_async(checkpoint_dir=d, checkpoint_every=1)
     assert latest_checkpoint(d).endswith("ckpt_000001.npz")

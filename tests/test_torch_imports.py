@@ -36,6 +36,7 @@ def test_port_file_imports_neither_jax_nor_repro(path):
 def test_importing_the_runtime_loads_no_jax():
     code = ("import sys, repro_torch.fed.server, repro_torch.kernels.ops, "
             "repro_torch.convert, repro_torch.fed.fleet, "
+            "repro_torch.fed.fleet.sharded, repro_torch.distributed, "
             "repro_torch.models.attention, repro_torch.configs; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'repro.'))]; "
@@ -79,11 +80,12 @@ def test_importing_the_async_fleet_engine_loads_no_jax():
 
 
 # public names of the JAX package's that belong to open ROADMAP items:
-# workload_cost_model (item 19b), the sharded engine and its module (item
-# 15)
-OPEN_ITEM_NAMES = {"fed": {"workload_cost_model"},
-                   "fed.fleet": {"ShardedFleetEngine", "client_mesh",
-                                 "sharded"}}
+# the mesh sharding helpers of ``repro.distributed`` and their module
+# (item 17); ``repro.fed`` and ``repro.fed.fleet`` have none left
+OPEN_ITEM_NAMES = {"fed": set(), "fed.fleet": set(),
+                   "distributed": {"batch_specs", "decode_state_specs",
+                                   "param_specs", "shard_batch_axes",
+                                   "sharding"}}
 
 
 @pytest.mark.parametrize("package", sorted(OPEN_ITEM_NAMES))

@@ -14,8 +14,8 @@ converted): the ``RoundRecord`` timing and participation fields exact,
 train loss and parameters within 1e-5 (the conformance matrix's
 ``PARAMS_ATOL`` for both workloads).  The JAX fleet runs its loop engine,
 the reference; the async runtime's event log must equal the reference's
-byte for byte.  The runtime and arguments not ported yet raise
-``NotImplementedError`` naming their ROADMAP items.
+byte for byte.  Unknown runtimes and arguments raise, and the sharded
+fleet engine runs batched without a process group.
 
 Some scenarios' capabilities put a near-tied medoid choice in front of
 a straggler: under ``device_classes``, ``flash_crowd`` and ``pareto`` the
@@ -252,12 +252,12 @@ def test_not_ported_arguments_raise():
         return run_scenario("uniform", runtime, workload="mlp", n_clients=4,
                             rounds=1, device="cpu", **kwargs)
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run("async_fleet", fleet_engine="sharded")
+    # without a process group the sharded engine runs batched
+    assert run("async_fleet",
+               fleet_engine="sharded")["engine_mode"] == "batched"
     with pytest.raises(ValueError, match="unknown async fleet engine"):
         run("async_fleet", fleet_engine="async")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        run(fleet_engine="sharded")
+    assert run(fleet_engine="sharded")["engine_mode"] == "batched"
     with pytest.raises(ValueError, match="unknown runtime"):
         run("batched")
     with pytest.raises(ValueError, match="needs model"):
