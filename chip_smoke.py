@@ -22,18 +22,21 @@ phases run in order and any failure exits non-zero:
    reordered float32 sum would need); the 1e30 padded-candidate masks of
    the distance-free kernels must be equal exactly; flash attention at
    the JAX kernel tests' shapes, a ragged S, packed short sequences (S =
-   16, 24, 32), the ``translm`` fleet's own shapes and yi-9b's attention
-   for one 4096-token sequence, with ``scaled_dot_product_attention``
-   timed as the library yardstick: in fp32 (the SIMT kernel) it must
+   16, 24, 32), the ``translm`` fleet's own shapes and the attention of
+   one 4096-token sequence of yi-9b, llama4-scout (a GQA group of 5)
+   and zamba2's shared block (MHA at hd 64), with
+   ``scaled_dot_product_attention`` timed as the library yardstick: in
+   fp32 (the SIMT kernel) it must
    agree with the plain version exactly, in bf16 (the tensor-core kernel,
    whose wgmma sums run in the hardware's order) it must be within 2e-2
    of it and its max and mean error against a float64 oracle at most 2x
    SDPA's (``bf16_attention_rule``), and its profile must show the wgmma
    kernel; RMSNorm at the JAX kernel test's shapes, the fleets' vmapped
-   step (84 clients' scales, one group each), xlstm-125m's and yi-9b's
-   widths, fp32 and bf16, which must agree with the plain version
-   exactly, with ``torch.nn.functional.rms_norm`` timed as the yardstick;
-   the cases with a shape key (the step shapes, yi-9b) also print the
+   step (84 clients' scales, one group each), xlstm-125m's, yi-9b's
+   (zamba2's d_inner), llama4-scout's and zamba2's widths, fp32 and
+   bf16, which must agree with the plain version exactly, with
+   ``torch.nn.functional.rms_norm`` timed as the yardstick; the cases
+   with a shape key (the step shapes, the LM shapes) also print the
    card's busy time a call; the pairwise kernels (1 and 4) at phase 2's
    old shapes, the sync path's largest and median client (m = 341, 39)
    and every fleet group below the cutover that phases 6 and 8 log
@@ -232,7 +235,28 @@ phases run in order and any failure exits non-zero:
     a tie parts them, the async event log equal byte for byte, both ranks'
     final params bit-identical, rank 0 alone recording; the round walls
     with the all-reduce's time a round, beside the batched rounds and
-    phase 6's bare round.
+    phase 6's bare round;
+20. the MoE LM path: llama4-scout-17b-a16e at its published widths
+    (d_model 5120, 40 q / 8 kv heads of 128, d_ff 8192, 16 experts top-1
+    with capacity dropping plus a shared expert, vocab 202048), its depth
+    cut to 4 layers (the only cut: 10.88 B fp32 parameters drawn on the
+    card, after checking that 60 GiB are free): (a) phase 17's prefill
+    (4 launches of kernel 7 at a GQA group of 5, 9 of kernel 8), aux
+    finite and in range, the tokens dropped and the largest expert load
+    in each layer, each dropped token one past its expert's capacity;
+    (b) phase 16's serving (kernel 8 9 times a decode step), the first
+    token against a forward at a capacity of every token, since a decode
+    step at batch 4 drops none;
+21. the hybrid LM path: zamba2-1.2b at its published widths and depth
+    (38 Mamba2 layers, d_model 2048, d_inner 4096, 64 SSM heads of 64,
+    state 64, chunk 128, one shared attention block of 32 / 32 heads of
+    64 after every 6 layers, tied vocab 32000; 1.11 B parameters, no
+    cut): (a) phase 17's prefill (6 launches of kernel 7, 89 of kernel
+    8), and ``ssd_chunked`` against ``ssd_sequential`` on layer 0's own
+    inputs (1, 4096, 64, 64, N = 64) at rtol = atol = 1e-4; (b) phase
+    16's serving (kernel 8 89 times a decode step, the Mamba states
+    returned anew a step, the shared block's KV caches written in
+    place).
 
 Phases 1-2 run alone.  Phases 3-7 and 12-15 (the sync and async runtimes
 and the CNN fleet), 8-9 (the ``translm`` fleet) and 10-11 (the ``xlstm``
@@ -248,10 +272,12 @@ Phases 16-18 (the dense LM) then run as a fourth lane, ``lm``, alone:
 its prefill keeps the card busy for seconds at a time, and the card's
 time slicing between processes would stretch every wait of the
 host-bound lanes (beside them on an H100 it made phase 5 2.3x slower).
-Phase 19 runs last, as the lane ``sharded``, alone: its ranks are two
-more processes on the card.  A lane that fails stops the others;
-lanes still running ``LANE_DEADLINE_S`` seconds after the start are
-stopped and the script fails with what they printed so far.
+Phase 19 runs next, as the lane ``sharded``, alone: its ranks are two
+more processes on the card.  Phases 20-21 run last, as the lane
+``lm_families``, alone, for the reason lane ``lm`` does.  A lane that
+fails stops the others; lanes still running ``LANE_DEADLINE_S`` seconds
+after the start are stopped and the script fails with what they printed
+so far.
 
 The last lines are the card (``nvidia-smi --query-gpu=name,power.limit``),
 one JSON object of kernel numbers, and the result line
@@ -273,10 +299,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 LANE_DIR = ROOT / "build" / "chip_smoke"
 # the lanes of phases 3-15, run concurrently, then the lanes of phases
-# 16-18 and of phase 19, each alone (see the module docstring)
+# 16-18, of phase 19 and of phases 20-21, each alone (see the module
+# docstring)
 LANES = ("sync_cnn", "translm", "xlstm")
 LM_LANES = ("lm",)
 SHARDED_LANES = ("sharded",)
+FAMILY_LANES = ("lm_families",)
 # lanes still running this long after the start are stopped: the whole
 # script must end within 1200 s
 LANE_DEADLINE_S = 1140.0
@@ -367,6 +395,18 @@ LM_FEDCORE = dict(rounds=2, steps_per_epoch=8, silos=4, batch=8, seq=128,
                   lr=3e-4, straggler_pct=30.0, seed=0)
 # the near-tie rule of phase 16's first token against the forward's argmax
 LM_TIE = 1e-5
+# phases 20-21: llama4-scout at its published widths, its depth cut to 4
+# layers (the only cut: 10.88 B fp32 parameters, 40.5 GiB), and zamba2
+# at its published widths and depth; the serving and prefill shapes are
+# phases 16-17's
+MOE_ARCH = "llama4-scout-17b-a16e"
+MOE_DEPTH = 4
+MOE_MIN_FREE_GIB = 60.0
+HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_MIN_FREE_GIB = 12.0
+# ssd_chunked against ssd_sequential, the reference's tolerance
+# (tests/test_models.py: rtol = atol = 1e-4)
+SSD_TOL = 1e-4
 # (c)'s local epochs: at phase 10's E = 5 the exponential gating makes a
 # round's result move far beyond 1e-5 under a 1-ulp change of its inputs
 # (the loop and batched engines differ in the matrix products' rounding,
@@ -769,6 +809,12 @@ def attention_cases(dev, g, attn_shapes):
     shapes += [(1, 32, 4, 4096, 128, None, dt, "yi-9b train_4k",
                 "yi-9b " + ("bf16" if dt == bf16 else "fp32"))
                for dt in (f32, bf16)]
+    # phases 20-21's prefills: llama4-scout's GQA group of 5 and
+    # zamba2's shared block (MHA at hd 64)
+    shapes += [(1, 40, 8, 4096, 128, None, f32, "llama4-scout prefill",
+                "scout fp32"),
+               (1, 32, 32, 4096, 64, None, f32, "zamba2 shared block",
+                "zamba2 fp32")]
     # phase 18's training shape: batch 8 of 128 tokens
     shapes += [(8, 32, 4, 128, 128, None, f32, "yi-9b, phase 18",
                 "yi-9b S=128")]
@@ -860,9 +906,12 @@ def rmsnorm_cases(dev, g):
     shapes += [((84, 8 * 16, 32), 84, f32, "fleet step, 84 clients' scales",
                 "step"),
                ((4096, 768), 1, f32, "xlstm-125m width", None)]
-    shapes += [((4096, 4096), 1, dt, "yi-9b width",
+    shapes += [((4096, 4096), 1, dt, "yi-9b width, zamba2 d_inner",
                 "yi-9b " + ("bf16" if dt == bf16 else "fp32"))
                for dt in (f32, bf16)]
+    # phases 20-21's prefill rows: llama4-scout's d_model, zamba2's
+    shapes += [((4096, 5120), 1, f32, "llama4-scout width", "scout"),
+               ((4096, 2048), 1, f32, "zamba2 width", "zamba2")]
     # phase 16's decode step (B, 1, d) and phase 18's training rows
     shapes += [((4, 1, 4096), 1, f32, "yi-9b decode, batch 4",
                 "yi-9b decode"),
@@ -2750,42 +2799,189 @@ def decode_steps(model, params, tokens, n):
             model.decode_step(params, state, tokens[:, t:t + 1], t)
 
 
-def check_lm_memory(dev):
-    """Fail with a clear message unless ``LM_MIN_FREE_GIB`` of the card's
-    memory are free for yi-9b (its fp32 weights alone are 32.9 GiB)."""
+def check_lm_memory(dev, need_gib, what):
+    """Fail with a clear message unless ``need_gib`` of the card's memory
+    are free for ``what``."""
     import torch
 
     free, total = torch.cuda.mem_get_info(dev)
     log(f"  card memory: {free / 2**30:.1f} GiB free of "
         f"{total / 2**30:.1f} GiB")
-    check(free >= LM_MIN_FREE_GIB * 2**30,
+    check(free >= need_gib * 2**30,
           f"only {free / 2**30:.1f} GiB of the card's memory are free; "
-          f"phases 16-17 need {LM_MIN_FREE_GIB:.0f} GiB (yi-9b's fp32 "
-          f"weights are 32.9 GiB)")
+          f"{what} need {need_gib:.0f} GiB")
 
 
-def phase_lm_serve(dev):
-    """Phase 16; returns (model, params, launch counts of the served
-    run)."""
+def lm_norm_launches(cfg) -> int:
+    """Kernel-8 launches of one forward pass or decode step: two norms a
+    layer (a Mamba2 layer's input norm and gated norm, an attention
+    layer's ln1 and ln2), two more each time the hybrid's shared block
+    runs, and ln_f."""
+    n = 2 * cfg.n_layers + 1
+    if cfg.family == "hybrid" and cfg.attn_every:
+        n += 2 * (cfg.n_layers // cfg.attn_every)
+    return n
+
+
+def lm_attention_launches(cfg) -> int:
+    """Kernel-7 launches of one forward pass: one an attention layer."""
+    if cfg.family in ("ssm", "hybrid"):
+        return (cfg.n_layers // cfg.attn_every
+                if cfg.family == "hybrid" and cfg.attn_every else 0)
+    return cfg.n_layers
+
+
+def lm_prefill_flops(cfg, s: int) -> float:
+    """Operations of one ``s``-token forward pass: 2 a weight and token of
+    every matrix product (an MoE layer's experts over their E·cap buffer
+    rows, as the dispatch computes them), 4·hd a visible (q, k) pair and
+    q head, the causal conv's multiply-adds, the SSD scan's einsums a
+    chunk, and the unembedding."""
+    from repro_torch.models.moe import _capacity
+
+    d = cfg.d_model
+    mats = 3 if cfg.act == "silu" else 2
+
+    def attention_layer():
+        hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        ops = 2.0 * s * d * hd * (2 * hq + 2 * hk)
+        ops += 4.0 * hd * s * (s + 1) / 2 * hq
+        ffn = 2.0 * s * mats * d * cfg.d_ff
+        if cfg.n_experts:
+            e = cfg.n_experts
+            cap = _capacity(s, e, cfg.moe_capacity_factor)
+            ops += 2.0 * s * d * e + 2.0 * e * cap * mats * d * cfg.d_ff
+            ffn = ffn if cfg.use_shared_expert else 0.0
+        return ops + ffn
+
+    total = 2.0 * s * d * cfg.vocab_size
+    if cfg.family not in ("ssm", "hybrid"):
+        return total + cfg.n_layers * attention_layer()
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    hd, l = cfg.ssm_headdim, cfg.ssm_chunk
+    nc = -(-s // l)
+    mamba = (2.0 * s * d * (2 * di + 2 * n + nh) + 2.0 * s * di * d
+             + 2.0 * s * cfg.ssm_conv * (di + 2 * n)
+             + nc * (2.0 * l * l * n + 2.0 * l * l * nh * hd
+                     + 4.0 * l * nh * hd * n))
+    total += cfg.n_layers * mamba
+    calls = lm_attention_launches(cfg)
+    return total + calls * (attention_layer() + 2.0 * s * 2 * d * d)
+
+
+def describe_lm(cfg) -> str:
+    text = (f"{cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+            f"vocab {cfg.vocab_size}")
+    if cfg.family in ("ssm", "hybrid"):
+        text += (f", Mamba2 d_inner {cfg.d_inner}, {cfg.ssm_heads} heads "
+                 f"of {cfg.ssm_headdim}, state {cfg.ssm_state}, chunk "
+                 f"{cfg.ssm_chunk}")
+        if cfg.family == "hybrid" and cfg.attn_every:
+            text += f", a shared attention block every {cfg.attn_every}"
+    if cfg.family != "ssm":
+        text += (f", {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
+                 f"{cfg.d_head}, d_ff {cfg.d_ff}")
+    if cfg.n_experts:
+        text += (f", {cfg.n_experts} experts top-1"
+                 + (" + a shared expert" if cfg.use_shared_expert else ""))
+    return text
+
+
+def draw_lm(dev, cfg):
+    """``Model(cfg)`` and its fp32 params drawn on the card from seed 0."""
     import torch
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.launch.serve import generate, tput_str
     from repro_torch.models.model import Model
 
-    check_lm_memory(dev)
-    cfg = get_config(LM_ARCH)
-    model, twin = Model(cfg), Model(cfg, use_kernel=False)
+    model = Model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     n = sum(v.numel() for v in params.values())
-    log(f"  {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads of {cfg.d_head}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: {n:,} fp32 parameters "
+    log(f"  {describe_lm(cfg)}: {n:,} fp32 parameters "
         f"({4 * n / 2**30:.2f} GiB) drawn on the card in "
         f"{time.perf_counter() - t0:.2f} s")
+    return model, params
+
+
+@contextlib.contextmanager
+def recording(owner, name, keep=None):
+    """Record (args, result) of each call of ``owner.name`` (the first
+    ``keep`` calls' in full, every call's result)."""
+    calls = []
+    real = getattr(owner, name)
+
+    def wrapper(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls.append((args if keep is None or len(calls) < keep else None,
+                      out))
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, real)
+
+
+def moe_routes(calls, n_layers=0, steps=0):
+    """Each MoE layer's expert choices from ``recording(moe,
+    "dispatch")``'s calls: a forward's one call a layer, or the first
+    ``steps`` decode steps' (one call a layer a step, (B,) each), laid
+    out in the forward's (b, s) token order."""
+    import torch
+
+    experts = [args[0] for args, _ in calls]
+    if not steps:
+        return experts
+    return [torch.stack(experts[i::n_layers][:steps], dim=1).reshape(-1)
+            for i in range(n_layers)]
+
+
+def routing_flips(a, b) -> int:
+    """The expert choices in which two runs' routes differ."""
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+@contextlib.contextmanager
+def pinned_routing(routes):
+    """``moe.dispatch`` with the i-th call's expert choices replaced by
+    ``routes[i]``: another run's routing, so that an A/B compares the
+    rest of the arithmetic.  A top-1 router flips at its near-ties under
+    last-bit differences upstream (another attention's sums, another
+    batch's products), and a flip moves a token to another expert, or
+    past its expert's capacity, which no tolerance covers; the gate
+    stays the run's own maximum, within the near-tie of the pinned
+    expert's probability."""
+    from repro_torch.models import moe
+
+    real = moe.dispatch
+    calls = iter(routes)
+    moe.dispatch = lambda expert, e, cap: real(next(calls), e, cap)
+    try:
+        yield
+    finally:
+        moe.dispatch = real
+
+
+def lm_serve(dev, model, params, fwd_model=None):
+    """``generate`` (``LM_SERVE``) on the kernels and on the plain twin:
+    kernel 8 launched ``lm_norm_launches`` times a decode step and kernel
+    7 never, finite logits, tokens and logits of the twin bit-identical,
+    a decode step bare and busy against its bound (the weights it reads
+    and the Mamba state it reads and writes, over the memory rate), and
+    the first token the argmax of ``fwd_model``'s forward (``model``'s
+    by default) unless a near-tie (``LM_TIE``) explains it.  Returns the
+    launch counts of the served run."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import generate, tput_str
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    twin = Model(cfg, use_kernel=False)
+    n = sum(v.numel() for v in params.values())
     b, p_len, gen = (LM_SERVE[k] for k in ("batch", "prompt_len", "gen"))
     prompts = torch.randint(
         0, cfg.vocab_size, (b, p_len), dtype=torch.int32, device=dev,
@@ -2800,17 +2996,26 @@ def phase_lm_serve(dev):
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     steps = p_len + gen
-    # the weights each step must read (all but the embedding table, of
-    # which it reads B rows) over the card's memory rate
-    w_bytes = 4 * (n - cfg.vocab_size * cfg.d_model + b * cfg.d_model)
+    # the weights each step must read (all but an untied embedding table,
+    # of which it reads B rows) and the Mamba state it reads and writes
+    emb = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
+    w_bytes = 4 * (n - emb + b * cfg.d_model)
+    st = model.init_decode_state(params, b, steps, dtype=torch.float32)
+    s_bytes = (2 * sum(t.numel() * 4 for t in st["mamba"])
+               if "mamba" in st else 0)
+    del st
     log(f"  generate, batch {b}, prompt {p_len}, {gen} greedy tokens: wall "
         f"{wall:.3f} s, {tput_str(b * gen / wall)} (batch·gen / wall, "
         f"prefill included), {1e3 * wall / steps:.2f} ms a decode step "
-        f"(bound: its {w_bytes / 2**30:.2f} GiB of weights at 3.35 TB/s, "
-        f"{1e3 * w_bytes / PEAK_BYTES_PER_S:.2f} ms); launches {launches}")
-    check(launches["rmsnorm"] == (2 * cfg.n_layers + 1) * steps,
+        f"(bound: its {w_bytes / 2**30:.2f} GiB of weights"
+        + (f" and {s_bytes / 2**30:.3f} GiB of Mamba state read and "
+           "written" if s_bytes else "")
+        + f" at 3.35 TB/s, {1e3 * (w_bytes + s_bytes) / PEAK_BYTES_PER_S:.2f}"
+        f" ms); launches {launches}")
+    per_step = lm_norm_launches(cfg)
+    check(launches["rmsnorm"] == per_step * steps,
           f"kernel 8 launched {launches['rmsnorm']} times in {steps} decode "
-          f"steps, not {2 * cfg.n_layers + 1} a step")
+          f"steps, not {per_step} a step")
     check(launches["flash_attention"] == 0,
           "the decode path launched kernel 7")
     check(tuple(out.shape) == (b, steps) and torch.equal(out[:, :p_len],
@@ -2838,18 +3043,36 @@ def phase_lm_serve(dev):
             f"{1e3 * busy / 8:.2f} ms (idle {100 * (1 - busy / 8 / bare):.1f}"
             f"% of the bare step), kernel 8 {1e3 * norm:.4f} ms of it")
 
+    from repro_torch.models import moe
+
     tkept = record_decode_logits(twin)
-    t0 = time.perf_counter()
-    tout = generate(twin, params, prompts, gen)
-    torch.cuda.synchronize()
+    with recording(moe, "dispatch") as routed:
+        t0 = time.perf_counter()
+        tout = generate(twin, params, prompts, gen)
+        torch.cuda.synchronize()
     log(f"  plain twin (the plain RMSNorm): wall "
         f"{time.perf_counter() - t0:.3f} s")
     check(torch.equal(tout, out), "the plain twin generated other tokens")
     check(len(tkept) == len(kept) and all(torch.equal(x, y) for x, y in
                                           zip(kept, tkept)),
           "the plain twin's decode logits are not bit-identical")
+    fwd_model = fwd_model or model
+    pin = contextlib.nullcontext()
     with torch.no_grad():
-        logits, _, _ = model.forward(params, {"tokens": prompts})
+        if cfg.n_experts:
+            # the forward routed as the prompt's decode steps were
+            routes = moe_routes(routed, cfg.n_layers, p_len)
+            with recording(moe, "dispatch") as own:
+                fwd_model.forward(params, {"tokens": prompts})
+            log(f"  the forward over the prompts, routed on its own: "
+                f"{routing_flips(moe_routes(own, cfg.n_layers), routes)} "
+                f"of {b * p_len * cfg.n_layers} expert choices differ from "
+                f"the decode steps'; the check below pins the decode "
+                f"steps' routing")
+            pin = pinned_routing(routes)
+        del routed
+        with pin:
+            logits, _, _ = fwd_model.forward(params, {"tokens": prompts})
     last = logits[:, -1]
     top2 = torch.topk(last, 2, dim=-1).values
     first = out[:, p_len].long()
@@ -2867,14 +3090,35 @@ def phase_lm_serve(dev):
                   f"row {r}: the first generated token is not the "
                   f"forward's argmax and no near-tie ({LM_TIE:g}) explains "
                   f"it")
-    return model, params, launches
+    return launches
 
 
-def phase_lm_prefill(dev, model, params):
-    """Phase 17; returns the launch counts of the kernel forward."""
+def phase_lm_serve(dev):
+    """Phase 16; returns (model, params, launch counts of the served
+    run)."""
+    from repro_torch.configs import get_config
+
+    check_lm_memory(dev, LM_MIN_FREE_GIB,
+                    "phases 16-17 (yi-9b's fp32 weights are 32.9 GiB)")
+    model, params = draw_lm(dev, get_config(LM_ARCH))
+    return model, params, lm_serve(dev, model, params)
+
+
+def lm_prefill(dev, model, params, record=()):
+    """One ``LM_PREFILL_S``-token ``Model.forward`` through the kernels,
+    after one untimed call (its allocations and library set-up): kernel
+    7 and 8 launched ``lm_attention_launches`` / ``lm_norm_launches``
+    times, finite logits, the card's busy time and kernel 7's share of
+    it, the plain twin bit-identical (logits and aux), chunked attention
+    within 1e-4·max|logits| (an MoE model's routed as the kernel run
+    was, ``pinned_routing``; its own routing's flips are counted).
+    ``record`` names (owner, attribute, keep) to record (``recording``)
+    during the plain twin's run.  Returns (launch counts, aux, the plain
+    twin's MoE dispatches, the recorded calls)."""
     import torch
 
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     from repro_torch.models.model import Model
 
     cfg = model.cfg
@@ -2884,32 +3128,30 @@ def phase_lm_prefill(dev, model, params):
     batch = {"tokens": toks}
     s = LM_PREFILL_S
     with torch.no_grad():
+        t0 = time.perf_counter()
+        model.forward(params, batch)
+        torch.cuda.synchronize()
+        log(f"  first forward (allocations, library set-up): wall "
+            f"{time.perf_counter() - t0:.3f} s")
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits, _, hidden = model.forward(params, batch)
+        logits, aux, hidden = model.forward(params, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
-        # matrix products: 2 operations a weight and token (the embedding
-        # table is read, not multiplied, unless tied); attention: 4·hd a
-        # visible (q, k) pair and q head
-        mm = sum(v.numel() for k, v in params.items()
-                 if k.startswith("layers.") and v.dim() == 3)
-        mm += cfg.vocab_size * cfg.d_model
-        ops_n = 2.0 * mm * s + 4.0 * cfg.d_head * s * (s + 1) / 2 \
-            * cfg.n_heads * cfg.n_layers
+        ops_n = lm_prefill_flops(cfg, s)
         log(f"  forward, 1 x {s} tokens, impl=None -> "
             f"{model.resolve_impl(None, toks.device)!r}: wall {wall:.3f} s, "
-            f"{ops_n / wall / 1e12:.1f} TFLOP/s (bound "
-            f"{1e3 * ops_n / PEAK_FP32_FLOPS:.0f} ms at the fp32 peak; "
-            f"TF32 off); launches {launches}")
-        check(launches["flash_attention"] == cfg.n_layers,
+            f"{ops_n / wall / 1e12:.1f} TFLOP/s of {ops_n / 1e12:.2f} TFLOP "
+            f"(bound {1e3 * ops_n / PEAK_FP32_FLOPS:.0f} ms at the fp32 "
+            f"peak; TF32 off); launches {launches}")
+        n_attn, n_norm = lm_attention_launches(cfg), lm_norm_launches(cfg)
+        check(launches["flash_attention"] == n_attn,
               f"kernel 7 launched {launches['flash_attention']} times, not "
-              f"once a layer")
-        check(launches["rmsnorm"] == 2 * cfg.n_layers + 1,
-              f"kernel 8 launched {launches['rmsnorm']} times, not "
-              f"{2 * cfg.n_layers + 1}")
+              f"{n_attn}")
+        check(launches["rmsnorm"] == n_norm,
+              f"kernel 8 launched {launches['rmsnorm']} times, not {n_norm}")
         check(tuple(logits.shape) == (1, s, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"prefill logits {tuple(logits.shape)} not finite")
@@ -2925,29 +3167,54 @@ def phase_lm_prefill(dev, model, params):
                 f"bare wall ({100 * (1 - busy / pwall):.1f}% of the "
                 f"profiled one); kernel 7 {fa:.3f} s "
                 f"({100 * fa / busy:.1f}% of the busy time, "
-                f"{1e3 * fa / cfg.n_layers:.3f} ms a layer), kernel 8 "
+                f"{1e3 * fa / max(n_attn, 1):.3f} ms a call), kernel 8 "
                 f"{1e3 * norm:.3f} ms")
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            log("  busiest device activities: " + "; ".join(
+                f"{k.split('(')[0][-50:]} {1e3 * v:.1f} ms" for k, v in top))
             check(fa > 0, "the profiled prefill ran no kernel 7")
-        t0 = time.perf_counter()
-        plain, _, _ = twin.forward(params, batch, impl="kernel")
-        torch.cuda.synchronize()
+        with contextlib.ExitStack() as stack:
+            routed = stack.enter_context(recording(moe, "dispatch"))
+            recorded = [stack.enter_context(recording(*r)) for r in record]
+            t0 = time.perf_counter()
+            plain, paux, _ = twin.forward(params, batch, impl="kernel")
+            torch.cuda.synchronize()
         log(f"  plain twin (the kernels' plain versions): wall "
             f"{time.perf_counter() - t0:.3f} s; bit-identical "
-            f"{torch.equal(plain, logits)}")
-        check(torch.equal(plain, logits),
+            f"{torch.equal(plain, logits) and torch.equal(paux, aux)}")
+        check(torch.equal(plain, logits) and torch.equal(paux, aux),
               "the plain twin's prefill logits are not bit-identical: max "
               f"abs {float((plain - logits).abs().max()):.3e}")
         del plain
+        scale = float(logits.abs().max())
+        pin = contextlib.nullcontext()
+        if cfg.n_experts:
+            with recording(moe, "dispatch") as own:
+                chunked, _, _ = model.forward(params, batch, impl="chunked")
+            log(f"  impl='chunked' routed on its own: "
+                f"{routing_flips(moe_routes(own), moe_routes(routed))} of "
+                f"{s * cfg.n_layers} expert choices differ from the kernel "
+                f"run's; logits max abs "
+                f"{float((chunked - logits).abs().max()):.3e} (a flipped "
+                f"token moves to another expert, or past a capacity); the "
+                f"check below pins the kernel run's routing")
+            del own, chunked
+            pin = pinned_routing(moe_routes(routed))
         t0 = time.perf_counter()
-        chunked, _, _ = model.forward(params, batch, impl="chunked")
+        with pin:
+            chunked, _, _ = model.forward(params, batch, impl="chunked")
         torch.cuda.synchronize()
         err = float((chunked - logits).abs().max())
-        scale = float(logits.abs().max())
         log(f"  impl='chunked': wall {time.perf_counter() - t0:.3f} s; max "
             f"abs {err:.3e} against the kernel's, max|logits| {scale:.3f}")
         check(err <= 1e-4 * scale, f"chunked attention's prefill is "
               f"{err:.3e} from the kernel's (limit {1e-4 * scale:.3e})")
-    return launches
+    return launches, aux, routed, recorded
+
+
+def phase_lm_prefill(dev, model, params):
+    """Phase 17; returns the launch counts of the kernel forward."""
+    return lm_prefill(dev, model, params)[0]
 
 
 def phase_lm_train(dev):
@@ -3496,6 +3763,95 @@ def phase_sharded(dev):
             "fleet_sharded_nccl": nlaunches, "select_group": slaunches}
 
 
+# ---------------------------------------------------------------------------
+# phases 20-21: the MoE and hybrid LM families
+# ---------------------------------------------------------------------------
+
+def phase_lm_moe(dev):
+    """Phase 20; returns the launch counts of the prefill and of the
+    served run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+
+    cfg = get_config(MOE_ARCH).with_(n_layers=MOE_DEPTH)
+    check_lm_memory(dev, MOE_MIN_FREE_GIB,
+                    f"phase 20 ({cfg.arch_id} at depth {MOE_DEPTH}: "
+                    "40.5 GiB of fp32 weights, and the prefill)")
+    model, params = draw_lm(dev, cfg)
+    log(f"  (a) prefill of {LM_PREFILL_S} tokens")
+    launches, aux, routed, _ = lm_prefill(dev, model, params)
+    e = cfg.n_experts
+    cap = moe._capacity(LM_PREFILL_S, e, cfg.moe_capacity_factor)
+    loads = [torch.bincount(args[0], minlength=e).tolist()
+             for args, _ in routed]
+    dropped = [int((~keep).sum()) for _, (_, _, keep) in routed]
+    log(f"  aux {float(aux):.6f} (the {cfg.n_layers} layers' Switch losses "
+        f"summed, each in [0, {e}]); capacity {cap} tokens an expert; "
+        f"tokens dropped by layer {dropped} of {LM_PREFILL_S}; the largest "
+        f"expert load by layer {[max(x) for x in loads]}")
+    check(len(routed) == cfg.n_layers,
+          f"{len(routed)} MoE dispatches in {cfg.n_layers} layers")
+    check(all(sum(x) == LM_PREFILL_S for x in loads)
+          and dropped == [sum(max(0, c - cap) for c in x) for x in loads],
+          "the dispatch dropped other tokens than each expert's past "
+          "its capacity")
+    check(bool(torch.isfinite(aux)) and 0.0 <= float(aux)
+          <= e * cfg.n_layers, f"aux {float(aux)} not finite or outside "
+          f"[0, {e * cfg.n_layers}]")
+    del routed
+    log(f"  (b) serving; the first token against the forward at a capacity "
+        f"of every token (a decode step at batch {LM_SERVE['batch']}, cap "
+        f"{moe._capacity(LM_SERVE['batch'], e, cfg.moe_capacity_factor)}, "
+        f"drops none; the forward over the prompts may)")
+    slaunches = lm_serve(dev, model, params, fwd_model=Model(
+        cfg.with_(moe_capacity_factor=float(e))))
+    return launches, slaunches
+
+
+def phase_lm_hybrid(dev):
+    """Phase 21; returns the launch counts of the prefill and of the
+    served run."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba2
+
+    cfg = get_config(HYBRID_ARCH)
+    check_lm_memory(dev, HYBRID_MIN_FREE_GIB,
+                    f"phase 21 ({cfg.arch_id}: 4.15 GiB of fp32 weights, "
+                    "and the prefill)")
+    model, params = draw_lm(dev, cfg)
+    log(f"  (a) prefill of {LM_PREFILL_S} tokens")
+    launches, aux, _, (ssd,) = lm_prefill(
+        dev, model, params, record=[(mamba2, "ssd_chunked", 1)])
+    check(float(aux) == 0.0, f"the hybrid's aux is {float(aux)}, not 0")
+    (x, a, B, C, chunk), (y, h) = ssd[0]
+    del ssd
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ys, hs = mamba2.ssd_sequential(x, a, B, C)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    errs = [(float((g - w).abs().max()),
+             bool(((g - w).abs() <= SSD_TOL + SSD_TOL * w.abs()).all()),
+             float(w.abs().max())) for g, w in ((y, ys), (h, hs))]
+    log(f"  ssd_chunked (chunk {chunk}) against ssd_sequential ({wall:.2f} "
+        f"s) on layer 0's own inputs, x {tuple(x.shape)}, N = "
+        f"{B.shape[-1]}: y max abs {errs[0][0]:.3e} (max|y| "
+        f"{errs[0][2]:.3f}), final state max abs {errs[1][0]:.3e} "
+        f"(max|h| {errs[1][2]:.3f})")
+    check(all(ok for _, ok, _ in errs),
+          f"ssd_chunked is not within rtol = atol = {SSD_TOL:g} of "
+          "ssd_sequential")
+    del x, a, B, C, y, h, ys, hs
+    log("  (b) serving")
+    return launches, lm_serve(dev, model, params)
+
+
 T0 = time.time()          # the script's start, shared with its lanes
 PHASE_SECONDS = {}
 # what a lane hands the script besides its launches and phase seconds
@@ -3718,6 +4074,35 @@ def lane_sharded():
     return launches
 
 
+def lane_lm_families():
+    """Phases 20-21; returns the launch counts of the MoE and hybrid LM
+    paths: prefill and serving of each."""
+    import gc
+
+    import torch
+
+    dev = torch.device("cuda")
+    with phase("lm_moe", "20: MoE LM, llama4-scout-17b-a16e at its "
+               "published widths (d_model 5120, 40/8 heads of 128, d_ff "
+               "8192, 16 experts top-1 + a shared expert, vocab 202048, "
+               f"fp32), depth cut to {MOE_DEPTH} layers: prefill of "
+               f"{LM_PREFILL_S} tokens, generate with batch 4, prompt 16, "
+               "32 greedy tokens"):
+        log(f"  card: {card_line()}")
+        mprefill, mserve = phase_lm_moe(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("lm_hybrid", "21: hybrid LM, zamba2-1.2b at its published "
+               "widths and depth (38 Mamba2 layers, d_model 2048, d_inner "
+               "4096, 64 SSM heads of 64, state 64, chunk 128, a shared "
+               "attention block every 6, 32/32 heads of 64, tied vocab "
+               f"32000, fp32): prefill of {LM_PREFILL_S} tokens, generate "
+               "with batch 4, prompt 16, 32 greedy tokens"):
+        hprefill, hserve = phase_lm_hybrid(dev)
+    return {"lm_moe_prefill": mprefill, "lm_moe_serve": mserve,
+            "lm_hybrid_prefill": hprefill, "lm_hybrid_serve": hserve}
+
+
 def lane_main(name: str, parent: int) -> int:
     """One lane, started by ``main``: dies with its parent, runs its
     phases and writes {"launches": {path: counts}, "phases": {key: s}}
@@ -3736,7 +4121,8 @@ def lane_main(name: str, parent: int) -> int:
     setup_torch()
     launches = {"sync_cnn": lane_sync_cnn, "translm": lane_translm,
                 "xlstm": lane_xlstm, "lm": lane_lm,
-                "sharded": lane_sharded}[name]()
+                "sharded": lane_sharded,
+                "lm_families": lane_lm_families}[name]()
     tmp = LANE_DIR / f"{name}.json.tmp"
     tmp.write_text(json.dumps({"launches": launches,
                                "phases": PHASE_SECONDS, **LANE_RESULTS}))
@@ -3857,11 +4243,15 @@ def main() -> int:
         f"{SHARDED_LANES[0]}, alone: its {SHARDED_RANKS} ranks are two more "
         f"processes on the card")
     sh_path, sh_phases, _ = run_lanes(SHARDED_LANES)
-    by_path.update(lm_path)
-    by_path.update(sh_path)
+    log(f"[{time.time() - T0:.0f} s] == phases 20-21 in lane "
+        f"{FAMILY_LANES[0]}, alone: its prefills are GPU-bound, as lane "
+        f"{LM_LANES[0]}'s")
+    fam_path, fam_phases, _ = run_lanes(FAMILY_LANES)
     PHASE_SECONDS.update(lane_phases)
-    PHASE_SECONDS.update(lm_phases)
-    PHASE_SECONDS.update(sh_phases)
+    for paths, phases in ((lm_path, lm_phases), (sh_path, sh_phases),
+                          (fam_path, fam_phases)):
+        by_path.update(paths)
+        PHASE_SECONDS.update(phases)
     solve_shapes["lm"] += lm_shapes["lm"]
     with phase("kernels_sync", "2, continued: kernels 2 and 3 at the sync "
                "path's (M, K) of phase 3 and the LM FedCore path's of "

@@ -1,8 +1,11 @@
-"""Batched serving launcher of the port: prefill + KV-cache decode with
-greedy / temperature sampling, for the dense configs.
+"""Batched serving launcher of the port: prefill + KV-cache / Mamba-state
+decode with greedy / temperature sampling, for the dense, MoE, SSM and
+hybrid configs.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
       --batch 4 --prompt-len 16 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch llama4-scout-17b-a16e --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny --device cpu
 """
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""The paper's FL models, the decoder ``Model``, the mLSTM block and the
+"""The paper's FL models, the decoder ``Model`` (dense, MoE, SSM and
+hybrid families), the MoE FFN, the Mamba2 block, the mLSTM block and the
 train step."""
 from repro_torch.models import xlstm  # noqa: F401
 from repro_torch.models.model import IGNORE, Model  # noqa: F401

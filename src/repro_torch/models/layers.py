@@ -172,6 +172,13 @@ def init_stacked(generator: torch.Generator, n_layers: int,
     return out
 
 
+def subparams(params: Params, name: str) -> Params:
+    """The leaves under ``name`` of a flat dict of dotted tree paths,
+    keyed by the rest of their path (``subparams(p, "ln1")["scale"]``)."""
+    pre = name + "."
+    return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+
+
 def unembed(params: Params, h: torch.Tensor) -> torch.Tensor:
     """h: (..., d) -> logits (..., vocab)."""
     return h @ params["w_unembed"]

@@ -940,31 +940,35 @@ def test_short_xlstm_fleet_goes_through_the_rmsnorm_kernel(cuda):
     assert all(v.device.type == "cuda" for v in out["params"].values())
 
 
-@pytest.mark.parametrize("arch", ["yi-9b", "granite-20b", "command-r-35b"])
-def test_dense_model_kernel_forward_equals_plain_twin(cuda, arch):
-    """A smoke-size dense ``Model`` on the card: ``impl=None`` resolves to
-    the kernel and launches kernels 7 and 8; its logits, its loss's
-    gradients and its decode logits equal the plain twin's
-    (``use_kernel=False``: the kernels' plain versions) bit for bit."""
-    from repro_torch.configs import get_config
+def _model_matches_plain_twin(dev, cfg):
+    """A smoke-size ``Model`` on the card: ``impl=None`` resolves to the
+    kernel, kernels 7 and 8 launch once an attention layer and once a
+    norm; its logits, aux, its loss's gradients and its decode logits
+    equal the plain twin's (``use_kernel=False``: the kernels' plain
+    versions) bit for bit."""
     from repro_torch.models.model import Model
     from repro_torch.models.training import make_grad_fn
 
-    cfg = get_config(arch, smoke=True)
     model, twin = Model(cfg), Model(cfg, use_kernel=False)
-    assert model.resolve_impl(None, cuda) == "kernel"
-    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
-    gen = torch.Generator(device=cuda).manual_seed(1)
+    assert model.resolve_impl(None, dev) == "kernel"
+    params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen,
-                           device=cuda)
+                           device=dev)
     batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    ssm = cfg.family in ("ssm", "hybrid")
+    n_attn = ((cfg.n_layers // cfg.attn_every if cfg.attn_every else 0)
+              if ssm else cfg.n_layers)
+    n_norm = 2 * cfg.n_layers + 1 + (2 * n_attn if ssm else 0)
     ops.reset_launch_counts()
-    logits, _, _ = model.forward(params, batch)
+    logits, aux, _ = model.forward(params, batch)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == cfg.n_layers
-    assert ops.LAUNCHES["rmsnorm"] == 2 * cfg.n_layers + 1
-    plain, _, _ = twin.forward(params, batch, impl="kernel")
+    assert ops.LAUNCHES["flash_attention"] == n_attn
+    assert ops.LAUNCHES["rmsnorm"] == n_norm
+    assert (float(aux) > 0) == (cfg.n_experts > 0)
+    plain, paux, _ = twin.forward(params, batch, impl="kernel")
     _same(logits, plain)
+    _same(aux, paux)
     chunked, _, _ = twin.forward(params, batch)
     assert float((chunked - logits).abs().max()) <= \
         1e-4 * float(logits.abs().max())
@@ -974,7 +978,38 @@ def test_dense_model_kernel_forward_equals_plain_twin(cuda, arch):
         _same(g1[k], g2[k])
     states = [m.init_decode_state(params, 2, 8, dtype=torch.float32)
               for m in (model, twin)]
+    ops.reset_launch_counts()
     for t in range(8):
-        a, _ = model.decode_step(params, states[0], tokens[:, t:t + 1], t)
-        b, _ = twin.decode_step(params, states[1], tokens[:, t:t + 1], t)
+        a, states[0] = model.decode_step(params, states[0],
+                                         tokens[:, t:t + 1], t)
+        b, states[1] = twin.decode_step(params, states[1],
+                                        tokens[:, t:t + 1], t)
         _same(a, b)
+    assert ops.LAUNCHES["rmsnorm"] == 8 * n_norm
+
+
+@pytest.mark.parametrize("arch", ["yi-9b", "granite-20b", "command-r-35b"])
+def test_dense_model_kernel_forward_equals_plain_twin(cuda, arch):
+    from repro_torch.configs import get_config
+
+    _model_matches_plain_twin(cuda, get_config(arch, smoke=True))
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("llama4-scout-17b-a16e", {}), ("llama4-maverick-400b-a17b", {}),
+    ("zamba2-1.2b", {}), ("zamba2-1.2b", {"n_layers": 3, "attn_every": 2}),
+    ("zamba2-1.2b", {"family": "ssm", "attn_every": 0})])
+def test_moe_and_hybrid_model_kernel_forward_equals_plain_twin(cuda, arch,
+                                                               kw):
+    """The MoE, hybrid (with and without a tail) and SSM smoke models,
+    as the dense ones (cuDNN made deterministic for the causal conv's
+    backward)."""
+    from repro_torch.configs import get_config
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _model_matches_plain_twin(cuda,
+                                  get_config(arch, smoke=True).with_(**kw))
+    finally:
+        torch.backends.cudnn.deterministic = prev

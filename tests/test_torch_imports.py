@@ -157,10 +157,9 @@ def test_entry_points_without_device_need_cuda():
 
 # the LM path's packages: public names of the JAX package's that belong
 # to open ROADMAP items, read in a fresh interpreter after importing the
-# package alone (so no other test's imports add submodules): the MoE and
-# Mamba2 modules (items 16b, 16c), and the launchers' mesh helpers and
-# dry run (item 17)
-LM_OPEN_ITEM_NAMES = {"models": {"mamba2", "moe"}, "optim": set(),
+# package alone (so no other test's imports add submodules): the
+# launchers' mesh helpers and dry run (item 17)
+LM_OPEN_ITEM_NAMES = {"models": set(), "optim": set(),
                       "utils": set(), "configs": set(),
                       "launch": {"mesh", "make_host_mesh",
                                  "make_production_mesh"}}
@@ -169,7 +168,8 @@ LM_OPEN_ITEM_NAMES = {"models": {"mamba2", "moe"}, "optim": set(),
 LM_OPEN_MODULE_NAMES = {"models.xlstm": {"SLSTMState", "init_slstm",
                                          "init_slstm_state", "slstm_block"}}
 LM_MODULES = ("models.model", "models.attention", "models.layers",
-              "models.training", "models.xlstm", "optim.optimizers",
+              "models.training", "models.xlstm", "models.moe",
+              "models.mamba2", "optim.optimizers",
               "optim.schedules", "utils.tree", "configs.base",
               "launch.train", "launch.serve")
 

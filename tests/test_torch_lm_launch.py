@@ -173,3 +173,61 @@ def test_main_runs_on_the_cpu(capsys):
     assert len(res["history"]) == 1
     text = capsys.readouterr().out
     assert "[serve] arch=tiny-lm" in text and "[train] step" in text
+
+
+def _jax_prompts(monkeypatch, argv):
+    """The JAX launcher's prompts for ``argv``, and ``torch.randint``
+    patched to hand the port's launcher the same ones."""
+    seed = int(argv[argv.index("--seed") + 1]) if "--seed" in argv else 0
+    b = int(argv[argv.index("--batch") + 1])
+    p_len = int(argv[argv.index("--prompt-len") + 1])
+    cfg = jserve.get_config(argv[argv.index("--arch") + 1], smoke=True)
+    want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed + 1),
+                                         (b, p_len), 0, cfg.vocab_size))
+    real = torch.randint
+
+    def randint(low, high, size, **kw):
+        if tuple(size) != (b, p_len):
+            return real(low, high, size, **kw)
+        assert (low, high) == (0, cfg.vocab_size)
+        return torch.tensor(want, dtype=kw.get("dtype"),
+                            device=kw.get("device"))
+    monkeypatch.setattr(torch, "randint", randint)
+    return want
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "zamba2-1.2b",
+                                  "llama4-maverick-400b-a17b"])
+def test_serve_cli_smoke_matches_reference(arch, monkeypatch, capsys):
+    """``serve --arch A --smoke`` from the JAX launcher's weights and
+    prompts gives its greedy tokens, token for token: the MoE decode (cap
+    8 at batch 4, every expert on 8 mostly empty rows) and the hybrid's
+    Mamba states and shared-block KV caches."""
+    argv = ["--arch", arch, "--smoke", "--batch", "4", "--prompt-len", "8",
+            "--gen", "12"]
+    want = np.asarray(jserve.main(argv))
+    _init_from_jax(monkeypatch, seed=0)
+    prompts = _jax_prompts(monkeypatch, argv)
+    np.testing.assert_array_equal(want[:, :8], prompts)
+    got = tserve.main(argv + ["--device", "cpu"])
+    assert tuple(got.shape) == (4, 20) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert f"[serve] arch={arch}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "zamba2-1.2b"])
+def test_train_centralized_new_families_match_reference(arch, monkeypatch):
+    """``train --preset A`` (the smoke config): every step's loss, the
+    MoE's aux term included, is the reference's on the same weights and
+    data."""
+    _init_from_jax(monkeypatch, seed=0)
+    kw = dict(steps=10, batch=4, seq=32, lr=1e-3, log_every=100, seed=0)
+    cfg = jtrain.get_config(arch, smoke=True)
+    want = jtrain.train_centralized(cfg, ckpt_dir=None, **kw)
+    out = ttrain.train_centralized(ttrain.get_config(arch, smoke=True),
+                                   ckpt_dir=None, device="cpu", **kw)
+    np.testing.assert_allclose(out["losses"], want["losses"], rtol=0,
+                               atol=1e-5)
+    res = ttrain.main(["--preset", arch, "--steps", "10", "--batch", "4",
+                       "--seq", "32", "--lr", "1e-3", "--device", "cpu"])
+    assert res["final_loss"] < res["initial_loss"]
