@@ -23,8 +23,10 @@ phases run in order and any failure exits non-zero:
    the distance-free kernels must be equal exactly; flash attention at
    the JAX kernel tests' shapes, a ragged S, packed short sequences (S =
    16, 24, 32), the ``translm`` fleet's own shapes and the attention of
-   one 4096-token sequence of yi-9b, llama4-scout (a GQA group of 5)
-   and zamba2's shared block (MHA at hd 64), with
+   one 4096-token sequence of yi-9b, llama4-scout (a GQA group of 5),
+   zamba2's shared block (MHA at hd 64) and pixtral-12b (GQA 32/8 at hd
+   160), and whisper-tiny's encoder (non-causal, 4 x 1,500 frames) and
+   decoder (4 x 448), with
    ``scaled_dot_product_attention`` timed as the library yardstick: in
    fp32 (the SIMT kernel) it must
    agree with the plain version exactly, in bf16 (the tensor-core kernel,
@@ -33,7 +35,8 @@ phases run in order and any failure exits non-zero:
    SDPA's (``bf16_attention_rule``), and its profile must show the wgmma
    kernel; RMSNorm at the JAX kernel test's shapes, the fleets' vmapped
    step (84 clients' scales, one group each), xlstm-125m's, yi-9b's
-   (zamba2's d_inner), llama4-scout's and zamba2's widths, fp32 and
+   (zamba2's d_inner), llama4-scout's (pixtral-12b's), zamba2's and
+   whisper-tiny's widths, fp32 and
    bf16, which must agree with the plain version exactly, with
    ``torch.nn.functional.rms_norm`` timed as the yardstick; the cases
    with a shape key (the step shapes, the LM shapes) also print the
@@ -256,24 +259,58 @@ phases run in order and any failure exits non-zero:
     inputs (1, 4096, 64, 64, N = 64) at rtol = atol = 1e-4; (b) phase
     16's serving (kernel 8 89 times a decode step, the Mamba states
     returned anew a step, the shared block's KV caches written in
-    place).
+    place);
+22. the xLSTM LM path: xlstm-125m at its published widths and depth
+    (blocks ``msmsmsmsmsms``, d_model 768, 4 heads of 192, tied vocab
+    50304; 77.6 M parameters by ``ModelConfig.param_count``): (a) phase
+    17's prefill (kernel 8 19 times: one norm an mLSTM block, two an
+    sLSTM block, ln_f; no attention, so no kernel 7 and no chunked
+    A/B), the sLSTM 4,096 dependent cell steps a block, its idle share
+    logged, its plain twin at two blocks (``depth_cut``) and no untimed
+    forward first: the host's calls dominate; (b) phase 16's serving (19
+    launches of kernel 8 a decode step), the ATen calls a decode step;
+23. the audio LM path: whisper-tiny at its published widths and depth
+    (4 encoder + 4 decoder layers, d_model 384, 6 heads of 64, d_ff 1536,
+    vocab 51865; no cut) at batch 4 over whisper's own 1,500 encoder
+    frames and 448 text tokens, the frames drawn from a seed as the
+    frontend stub's: (a) the forward (kernel 7 8 times: the encoder's
+    non-causal layers at a ragged S, the decoder's causal ones;
+    cross-attention takes the chunked path; kernel 8 22 times), its
+    plain twin and the chunked A/B; (b) phase 16's serving over the zero
+    encoder that ``init_decode_state`` makes (its 4 + 9 launches, then
+    13 launches of kernel 8 a decode step); (c) 448 decode steps over
+    the same frames, within rtol = atol = 3e-4 of the forward's logits
+    (``tests/test_decode_parity.py``'s tolerance);
+24. the VLM path: pixtral-12b at its published widths and depth (40
+    layers, d_model 5120, 32 / 8 heads of 160, d_ff 14336, vocab 131072
+    untied; 12.77 B fp32 parameters, 47.58 GiB, after checking that 60
+    GiB are free; no cut): (a) a prefill of 4,096 positions, 1,024 patch
+    embeddings drawn from a seed before 3,072 tokens (kernel 7 40 times
+    at hd 160, kernel 8 81 times; logits over the tokens only; the plain
+    twin against the kernels at a depth of ``VLM_TWIN_DEPTH`` = 8
+    layers: the plain attention takes ~1.4 s a layer at this shape, and
+    phase 2 holds kernel 7 there bit for bit); (b)
+    phase 16's serving (81 launches of kernel 8 a decode step: the
+    decode is the dense one and sees no patch).
 
-Phases 1-2 run alone.  Phases 3-7 and 12-15 (the sync and async runtimes
-and the CNN fleet), 8-9 (the ``translm`` fleet) and 10-11 (the ``xlstm``
-fleet) share no state, and each group is host-bound (the card idles most
-of each round), so they run as three concurrent processes on the one
-card, each a *lane* (``python3 chip_smoke.py --lane NAME``, started by
-the script itself): a lane sets its own launch counts to 0 around its
-main path, writes its launch counts and phase seconds to
-``build/chip_smoke/``, and its output is printed in phase order once
-every lane has ended.  Round walls, idle shares and step times of
+Phases 1-2 run alone.  Phases 3-7, 12, 14 and 15 (the sync and async
+runtimes and the CNN fleet), 8-9 (the ``translm`` fleet) and 10, 11 and
+13 (the ``xlstm`` fleet, then the faulted CNN fleet on phase 6's fleet
+and phase 3's clients made anew from their seeds, which keeps the three
+lanes about as long) share no state, and each group is host-bound (the
+card idles most of each round), so they run as three concurrent
+processes on the one card, each a *lane* (``python3 chip_smoke.py
+--lane NAME``, started by the script itself): a lane sets its own launch
+counts to 0 around its main path, writes its launch counts and phase
+seconds to ``build/chip_smoke/``, and its output is printed, lane by
+lane, once every lane has ended.  Round walls, idle shares and step times of
 phases 3-15 are therefore taken with the other two lanes running.
 Phases 16-18 (the dense LM) then run as a fourth lane, ``lm``, alone:
 its prefill keeps the card busy for seconds at a time, and the card's
 time slicing between processes would stretch every wait of the
 host-bound lanes (beside them on an H100 it made phase 5 2.3x slower).
 Phase 19 runs next, as the lane ``sharded``, alone: its ranks are two
-more processes on the card.  Phases 20-21 run last, as the lane
+more processes on the card.  Phases 20-24 run last, as the lane
 ``lm_families``, alone, for the reason lane ``lm`` does.  A lane that
 fails stops the others; lanes still running ``LANE_DEADLINE_S`` seconds
 after the start are stopped and the script fails with what they printed
@@ -299,7 +336,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 LANE_DIR = ROOT / "build" / "chip_smoke"
 # the lanes of phases 3-15, run concurrently, then the lanes of phases
-# 16-18, of phase 19 and of phases 20-21, each alone (see the module
+# 16-18, of phase 19 and of phases 20-24, each alone (see the module
 # docstring)
 LANES = ("sync_cnn", "translm", "xlstm")
 LM_LANES = ("lm",)
@@ -407,6 +444,27 @@ HYBRID_MIN_FREE_GIB = 12.0
 # ssd_chunked against ssd_sequential, the reference's tolerance
 # (tests/test_models.py: rtol = atol = 1e-4)
 SSD_TOL = 1e-4
+# phases 22-24, each uncut: xlstm-125m, whisper-tiny at its own sizes
+# (arXiv:2212.04356: 30 s of audio are 1,500 encoder frames, a text
+# context of 448 tokens) at batch 4, and pixtral-12b over
+# ``Model._n_patches(4096)`` = 1,024 patches and 3,072 tokens
+XLSTM_ARCH = "xlstm-125m"
+XLSTM_MIN_FREE_GIB = 16.0
+# its prefill is host-bound (~600 k ATen calls): the twin runs at two
+# blocks (one of each kind), and no untimed forward precedes the timed one
+XLSTM_TWIN_DEPTH = 2
+AUDIO_ARCH = "whisper-tiny"
+AUDIO_MIN_FREE_GIB = 8.0
+AUDIO_SHAPE = dict(batch=4, frames=1500, text=448)
+# decode against the forward, the reference's tolerance
+# (tests/test_decode_parity.py: rtol = atol = 3e-4)
+DECODE_TOL = 3e-4
+VLM_ARCH = "pixtral-12b"
+VLM_MIN_FREE_GIB = 60.0
+# the depth of pixtral's prefill twin, against the kernels at that depth:
+# the plain attention takes ~1.4 s a layer at (1, 32, 8, 4096, 160), and
+# phase 2 holds kernel 7 at that shape bit for bit
+VLM_TWIN_DEPTH = 8
 # (c)'s local epochs: at phase 10's E = 5 the exponential gating makes a
 # round's result move far beyond 1e-5 under a 1-ulp change of its inputs
 # (the loop and batched engines differ in the matrix products' rounding,
@@ -433,7 +491,8 @@ def log(*args) -> None:
 
 def time_ms(fn, target_ms: float = 60.0) -> float:
     """Mean device time of one call, by CUDA events over many calls after
-    a warm-up (inputs stay warm in L2, as the main path leaves them)."""
+    a warm-up (inputs stay warm in L2, as the main path leaves them); a
+    call above 500 ms is timed once."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -444,8 +503,9 @@ def time_ms(fn, target_ms: float = 60.0) -> float:
     end.record()
     torch.cuda.synchronize()
     one = max(start.elapsed_time(end), 1e-3)
-    # a call of seconds (plain attention at yi-9b) needs few repeats
-    reps = int(max(2 if one > 500.0 else 5, min(200, target_ms / one)))
+    if one > 500.0:     # a call of seconds (plain attention at yi-9b)
+        return one
+    reps = int(max(5, min(200, target_ms / one)))
     start.record()
     for _ in range(reps):
         fn()
@@ -777,11 +837,11 @@ def sync_cases(dev, shapes, path="sync"):
 
 
 def attention_cases(dev, g, attn_shapes):
-    """Flash attention (kernel 7) cases in ``kernel_cases``'s form, all
-    causal, at (B, Hq, Hk, S, hd, window, dtype, what, shape key).  fp32
-    runs the SIMT kernel, which must equal its plain version exactly
-    (packed blocks for S <= 32); bf16 the tensor-core kernel, held by
-    ``bf16_attention_rule``."""
+    """Flash attention (kernel 7) cases in ``kernel_cases``'s form, at
+    (B, Hq, Hk, S, hd, window, dtype, what, shape key[, causal]): causal
+    unless the tenth entry says otherwise.  fp32 runs the SIMT kernel,
+    which must equal its plain version exactly (packed blocks for S <=
+    32); bf16 the tensor-core kernel, held by ``bf16_attention_rule``."""
     import torch
     import torch.nn.functional as F
 
@@ -818,23 +878,33 @@ def attention_cases(dev, g, attn_shapes):
     # phase 18's training shape: batch 8 of 128 tokens
     shapes += [(8, 32, 4, 128, 128, None, f32, "yi-9b, phase 18",
                 "yi-9b S=128")]
+    # phases 23-24: whisper-tiny's encoder (non-causal, 1,500 frames: no
+    # multiple of the 64-key tile) and decoder at batch 4, pixtral-12b's
+    # layers (GQA 32/8 at hd 160) over 1,024 patches and 3,072 tokens
+    shapes += [(4, 6, 6, 1500, 64, None, f32, "whisper-tiny encoder",
+                "whisper enc fp32", False),
+               (4, 6, 6, 448, 64, None, f32, "whisper-tiny decoder",
+                "whisper dec fp32"),
+               (1, 32, 8, 4096, 160, None, f32, "pixtral-12b prefill",
+                "pixtral fp32")]
     cases = []
-    for b, hq, hk, s, hd, window, dt, what, key in shapes:
+    for b, hq, hk, s, hd, window, dt, what, key, *causal in shapes:
+        causal = causal[0] if causal else True
         q = torch.randn(b, hq, s, hd, generator=g, device=dev).to(dt)
         k = torch.randn(b, hk, s, hd, generator=g, device=dev).to(dt)
         v = torch.randn(b, hk, s, hd, generator=g, device=dev).to(dt)
 
-        def run(uk, q=q, k=k, v=v, window=window):
-            return (ops.flash_attention(q, k, v, window=window,
-                                        use_kernel=uk),)
+        def run(uk, q=q, k=k, v=v, window=window, causal=causal):
+            return (ops.flash_attention(q, k, v, causal=causal,
+                                        window=window, use_kernel=uk),)
 
-        mask = ref.attention_mask(s, True, window, dev)
+        mask = ref.attention_mask(s, causal, window, dev)
 
         def lib(q=q, k=k, v=v, mask=mask, windowed=window is not None,
-                gqa=hq != hk):
+                gqa=hq != hk, causal=causal):
             return F.scaled_dot_product_attention(
                 q, k, v, attn_mask=mask if windowed else None,
-                is_causal=not windowed, enable_gqa=gqa)
+                is_causal=causal and not windowed, enable_gqa=gqa)
 
         # the work: 4·hd operations per visible (q, k) pair and head (the
         # score and the weighted sum of V); each of q, k, v read once and
@@ -842,6 +912,7 @@ def attention_cases(dev, g, attn_shapes):
         pairs = float(mask.sum())
         label = (f"B={b} Hq={hq} Hk={hk} S={s} hd={hd}"
                  + (f" window={window}" if window else "")
+                 + ("" if causal else " non-causal")
                  + (" bf16" if dt == bf16 else "") + f" ({what})")
         rule = (bf16_attention_rule(q, k, v, window, lib) if dt == bf16
                 else "exact")
@@ -905,13 +976,17 @@ def rmsnorm_cases(dev, g):
               for dt in (f32, bf16)]
     shapes += [((84, 8 * 16, 32), 84, f32, "fleet step, 84 clients' scales",
                 "step"),
-               ((4096, 768), 1, f32, "xlstm-125m width", None)]
+               ((4096, 768), 1, f32, "xlstm-125m width", "xlstm")]
     shapes += [((4096, 4096), 1, dt, "yi-9b width, zamba2 d_inner",
                 "yi-9b " + ("bf16" if dt == bf16 else "fp32"))
                for dt in (f32, bf16)]
-    # phases 20-21's prefill rows: llama4-scout's d_model, zamba2's
-    shapes += [((4096, 5120), 1, f32, "llama4-scout width", "scout"),
-               ((4096, 2048), 1, f32, "zamba2 width", "zamba2")]
+    # phases 20-21's prefill rows: llama4-scout's d_model (pixtral-12b's
+    # too, phase 24), zamba2's; phase 23's whisper-tiny encoder, 4 x
+    # 1,500 frames of 384
+    shapes += [((4096, 5120), 1, f32, "llama4-scout, pixtral-12b width",
+                "scout"),
+               ((4096, 2048), 1, f32, "zamba2 width", "zamba2"),
+               ((6000, 384), 1, f32, "whisper-tiny encoder", "whisper")]
     # phase 16's decode step (B, 1, d) and phase 18's training rows
     shapes += [((4, 1, 4096), 1, f32, "yi-9b decode, batch 4",
                 "yi-9b decode"),
@@ -2812,11 +2887,18 @@ def check_lm_memory(dev, need_gib, what):
           f"{what} need {need_gib:.0f} GiB")
 
 
-def lm_norm_launches(cfg) -> int:
-    """Kernel-8 launches of one forward pass or decode step: two norms a
-    layer (a Mamba2 layer's input norm and gated norm, an attention
-    layer's ln1 and ln2), two more each time the hybrid's shared block
-    runs, and ln_f."""
+def lm_norm_launches(cfg, decode=False) -> int:
+    """Kernel-8 launches of one forward pass (or, with ``decode``, one
+    decode step): two norms a layer (a Mamba2 layer's input norm and
+    gated norm, an attention layer's ln1 and ln2), two more each time the
+    hybrid's shared block runs, an audio decoder layer's ln_x, one an
+    mLSTM block and two an sLSTM block, and ln_f.  The audio encoder's
+    (two a layer and enc_ln) run in the forward only."""
+    if cfg.family == "xlstm":
+        return len(cfg.xlstm_pattern) + cfg.xlstm_pattern.count("s") + 1
+    if cfg.family == "audio":
+        return 3 * cfg.n_layers + 1 + (0 if decode
+                                       else 2 * cfg.enc_layers + 1)
     n = 2 * cfg.n_layers + 1
     if cfg.family == "hybrid" and cfg.attn_every:
         n += 2 * (cfg.n_layers // cfg.attn_every)
@@ -2824,49 +2906,86 @@ def lm_norm_launches(cfg) -> int:
 
 
 def lm_attention_launches(cfg) -> int:
-    """Kernel-7 launches of one forward pass: one an attention layer."""
+    """Kernel-7 launches of one forward pass: one a self-attention layer,
+    the audio encoder's and decoder's alike (cross-attention takes the
+    chunked path); the xLSTM has none."""
     if cfg.family in ("ssm", "hybrid"):
         return (cfg.n_layers // cfg.attn_every
                 if cfg.family == "hybrid" and cfg.attn_every else 0)
-    return cfg.n_layers
+    if cfg.family == "xlstm":
+        return 0
+    return cfg.n_layers + (cfg.enc_layers if cfg.family == "audio" else 0)
 
 
-def lm_prefill_flops(cfg, s: int) -> float:
-    """Operations of one ``s``-token forward pass: 2 a weight and token of
-    every matrix product (an MoE layer's experts over their E·cap buffer
-    rows, as the dispatch computes them), 4·hd a visible (q, k) pair and
-    q head, the causal conv's multiply-adds, the SSD scan's einsums a
-    chunk, and the unembedding."""
+def lm_decode_state_launches(cfg):
+    """(kernel-7, kernel-8) launches of ``init_decode_state``: the audio
+    model's encoder runs there once; no other family launches."""
+    if cfg.family == "audio":
+        return cfg.enc_layers, 2 * cfg.enc_layers + 1
+    return 0, 0
+
+
+def lm_prefill_flops(cfg, s: int, b: int = 1, s_enc: int = 0,
+                     prefix: int = 0) -> float:
+    """Operations of one forward pass over ``b`` sequences of ``s`` tokens
+    (and an audio model's ``s_enc`` encoder frames, a VLM's ``prefix``
+    patches): 2 a weight and token of every matrix product (an MoE
+    layer's experts over their E·cap buffer rows, as the dispatch
+    computes them), 4·hd a visible (q, k) pair and q head, the causal
+    conv's multiply-adds, the SSD scan's einsums a chunk, the xLSTM
+    cells' products and updates a step, and the unembedding of the text
+    positions."""
     from repro_torch.models.moe import _capacity
 
     d = cfg.d_model
     mats = 3 if cfg.act == "silu" else 2
+    hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
 
-    def attention_layer():
-        hq, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-        ops = 2.0 * s * d * hd * (2 * hq + 2 * hk)
-        ops += 4.0 * hd * s * (s + 1) / 2 * hq
-        ffn = 2.0 * s * mats * d * cfg.d_ff
+    def attention_layer(n, causal=True, mats=mats):
+        ops = 2.0 * n * d * hd * (2 * hq + 2 * hk)
+        ops += 4.0 * hd * (n * (n + 1) / 2 if causal else n * n) * hq
+        ffn = 2.0 * n * mats * d * cfg.d_ff
         if cfg.n_experts:
             e = cfg.n_experts
-            cap = _capacity(s, e, cfg.moe_capacity_factor)
-            ops += 2.0 * s * d * e + 2.0 * e * cap * mats * d * cfg.d_ff
+            cap = _capacity(n, e, cfg.moe_capacity_factor)
+            ops += 2.0 * n * d * e + 2.0 * e * cap * mats * d * cfg.d_ff
             ffn = ffn if cfg.use_shared_expert else 0.0
         return ops + ffn
 
     total = 2.0 * s * d * cfg.vocab_size
-    if cfg.family not in ("ssm", "hybrid"):
-        return total + cfg.n_layers * attention_layer()
-    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    hd, l = cfg.ssm_headdim, cfg.ssm_chunk
-    nc = -(-s // l)
-    mamba = (2.0 * s * d * (2 * di + 2 * n + nh) + 2.0 * s * di * d
-             + 2.0 * s * cfg.ssm_conv * (di + 2 * n)
-             + nc * (2.0 * l * l * n + 2.0 * l * l * nh * hd
-                     + 4.0 * l * nh * hd * n))
-    total += cfg.n_layers * mamba
-    calls = lm_attention_launches(cfg)
-    return total + calls * (attention_layer() + 2.0 * s * 2 * d * d)
+    if cfg.family == "audio":
+        cross = (2.0 * s * d * hq * hd * 2 + 2.0 * s_enc * d * hk * hd * 2
+                 + 4.0 * hd * s * s_enc * hq)
+        total += cfg.enc_layers * attention_layer(s_enc, False, 2)
+        total += cfg.n_layers * (attention_layer(s) + cross)
+    elif cfg.family == "xlstm":
+        h, hdx = cfg.n_heads, d // cfg.n_heads
+        # mLSTM: q, k, v, o-gate and out (d x d), the i and f gates; a
+        # step and head the (hd+1) x hd update i·[v kᵀ; kᵀ], the decay
+        # and add, C q and n·q
+        m_blk = (2.0 * s * d * (5 * d + 2 * h)
+                 + s * h * (4.0 * (hdx + 1) * hdx + 2.0 * hdx * hdx
+                            + 2.0 * hdx))
+        # sLSTM: the four gates' input projection and out (d x d); a step
+        # the block-diagonal R h of the four gates and the cell's ~20
+        # operations an element
+        s_blk = 2.0 * s * d * 5 * d + s * (8.0 * h * hdx * hdx + 20.0 * d)
+        total += sum(m_blk if ch == "m" else s_blk
+                     for ch in cfg.xlstm_pattern)
+    elif cfg.family not in ("ssm", "hybrid"):
+        total += cfg.n_layers * attention_layer(prefix + s)
+    else:
+        di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        shd, l = cfg.ssm_headdim, cfg.ssm_chunk
+        nc = -(-s // l)
+        mamba = (2.0 * s * d * (2 * di + 2 * n + nh) + 2.0 * s * di * d
+                 + 2.0 * s * cfg.ssm_conv * (di + 2 * n)
+                 + nc * (2.0 * l * l * n + 2.0 * l * l * nh * shd
+                         + 4.0 * l * nh * shd * n))
+        total += cfg.n_layers * mamba
+        calls = lm_attention_launches(cfg)
+        total += calls * (attention_layer(s) + 2.0 * s * 2 * d * d)
+    return b * total
 
 
 def describe_lm(cfg) -> str:
@@ -2878,13 +2997,38 @@ def describe_lm(cfg) -> str:
                  f"{cfg.ssm_chunk}")
         if cfg.family == "hybrid" and cfg.attn_every:
             text += f", a shared attention block every {cfg.attn_every}"
-    if cfg.family != "ssm":
+    if cfg.family == "xlstm":
+        text += (f", blocks {cfg.xlstm_pattern} (m: mLSTM, s: sLSTM), "
+                 f"{cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}")
+    elif cfg.family != "ssm":
         text += (f", {cfg.n_heads} q / {cfg.n_kv_heads} kv heads of "
                  f"{cfg.d_head}, d_ff {cfg.d_ff}")
+    if cfg.family == "audio":
+        text += (f", an encoder of {cfg.enc_layers} layers, cross-attention "
+                 f"in each decoder layer")
+    if cfg.family == "vlm":
+        text += f", up to {cfg.n_patches} patches before the tokens"
     if cfg.n_experts:
         text += (f", {cfg.n_experts} experts top-1"
                  + (" + a shared expert" if cfg.use_shared_expert else ""))
     return text
+
+
+def aten_calls(fn) -> int:
+    """The ATen calls ``fn`` dispatches (views included), counted by a
+    dispatch mode, without the profiler."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
 
 
 def draw_lm(dev, cfg):
@@ -2964,15 +3108,19 @@ def pinned_routing(routes):
         moe.dispatch = real
 
 
-def lm_serve(dev, model, params, fwd_model=None):
+def lm_serve(dev, model, params, fwd_model=None, fwd_extra=None):
     """``generate`` (``LM_SERVE``) on the kernels and on the plain twin:
     kernel 8 launched ``lm_norm_launches`` times a decode step and kernel
-    7 never, finite logits, tokens and logits of the twin bit-identical,
-    a decode step bare and busy against its bound (the weights it reads
-    and the Mamba state it reads and writes, over the memory rate), and
+    7 never (``init_decode_state``'s own launches aside: the audio
+    encoder's), finite logits, tokens and logits of the twin
+    bit-identical, a decode step bare and busy against its bound (the
+    weights it reads and the recurrent state it reads and writes or the
+    encoder K/V it reads, over the memory rate) and its ATen calls, and
     the first token the argmax of ``fwd_model``'s forward (``model``'s
-    by default) unless a near-tie (``LM_TIE``) explains it.  Returns the
-    launch counts of the served run."""
+    by default, with ``fwd_extra``'s inputs: the audio model's zero
+    encoder, the VLM's no patches, as their decode sees them) unless a
+    near-tie (``LM_TIE``) explains it.  Returns the launch counts of the
+    served run."""
     import torch
 
     from repro_torch.kernels import ops
@@ -2997,27 +3145,39 @@ def lm_serve(dev, model, params, fwd_model=None):
     launches = dict(ops.LAUNCHES)
     steps = p_len + gen
     # the weights each step must read (all but an untied embedding table,
-    # of which it reads B rows) and the Mamba state it reads and writes
+    # of which it reads B rows, and an audio model's encoder) and the
+    # recurrent state it reads and writes (Mamba, xLSTM) or the encoder
+    # K/V it reads
     emb = 0 if cfg.tie_embeddings else cfg.vocab_size * cfg.d_model
-    w_bytes = 4 * (n - emb + b * cfg.d_model)
+    enc = sum(v.numel() for k, v in params.items()
+              if k.startswith(("enc_layers.", "enc_ln.")))
+    w_bytes = 4 * (n - emb - enc + b * cfg.d_model)
     st = model.init_decode_state(params, b, steps, dtype=torch.float32)
-    s_bytes = (2 * sum(t.numel() * 4 for t in st["mamba"])
-               if "mamba" in st else 0)
+    s_bytes = 4 * (2 * sum(t.numel() for t in st.get("mamba", ()))
+                   + 2 * sum(t.numel() for bs in st.get("blocks", ())
+                             for t in bs)
+                   + sum(st[k].numel() for k in ("enc_k", "enc_v")
+                         if k in st))
+    what = ("Mamba state read and written" if "mamba" in st else
+            "xLSTM state read and written" if "blocks" in st else
+            "encoder K/V read" if "enc_k" in st else "")
     del st
     log(f"  generate, batch {b}, prompt {p_len}, {gen} greedy tokens: wall "
         f"{wall:.3f} s, {tput_str(b * gen / wall)} (batch·gen / wall, "
         f"prefill included), {1e3 * wall / steps:.2f} ms a decode step "
         f"(bound: its {w_bytes / 2**30:.2f} GiB of weights"
-        + (f" and {s_bytes / 2**30:.3f} GiB of Mamba state read and "
-           "written" if s_bytes else "")
+        + (f" and {s_bytes / 2**30:.4f} GiB of {what}" if s_bytes else "")
         + f" at 3.35 TB/s, {1e3 * (w_bytes + s_bytes) / PEAK_BYTES_PER_S:.2f}"
         f" ms); launches {launches}")
-    per_step = lm_norm_launches(cfg)
-    check(launches["rmsnorm"] == per_step * steps,
+    per_step = lm_norm_launches(cfg, decode=True)
+    st_attn, st_norm = lm_decode_state_launches(cfg)
+    check(launches["rmsnorm"] == per_step * steps + st_norm,
           f"kernel 8 launched {launches['rmsnorm']} times in {steps} decode "
-          f"steps, not {per_step} a step")
-    check(launches["flash_attention"] == 0,
-          "the decode path launched kernel 7")
+          f"steps, not {per_step} a step and {st_norm} in the decode "
+          "state's set-up")
+    check(launches["flash_attention"] == st_attn,
+          f"kernel 7 launched {launches['flash_attention']} times, not "
+          f"{st_attn} (the decode steps launch none)")
     check(tuple(out.shape) == (b, steps) and torch.equal(out[:, :p_len],
                                                          prompts),
           f"generate returned {tuple(out.shape)} tokens")
@@ -3042,6 +3202,12 @@ def lm_serve(dev, model, params, fwd_model=None):
         log(f"  a decode step: bare {1e3 * bare:.2f} ms, device busy "
             f"{1e3 * busy / 8:.2f} ms (idle {100 * (1 - busy / 8 / bare):.1f}"
             f"% of the bare step), kernel 8 {1e3 * norm:.4f} ms of it")
+    st = model.init_decode_state(params, b, 2, dtype=torch.float32)
+    with torch.no_grad():
+        n_aten = aten_calls(lambda: model.decode_step(params, st,
+                                                      out[:, :1], 0))
+    del st
+    log(f"  a decode step dispatches {n_aten} ATen calls (views included)")
 
     from repro_torch.models import moe
 
@@ -3072,7 +3238,8 @@ def lm_serve(dev, model, params, fwd_model=None):
             pin = pinned_routing(routes)
         del routed
         with pin:
-            logits, _, _ = fwd_model.forward(params, {"tokens": prompts})
+            logits, _, _ = fwd_model.forward(
+                params, {"tokens": prompts, **(fwd_extra or {})})
     last = logits[:, -1]
     top2 = torch.topk(last, 2, dim=-1).values
     first = out[:, p_len].long()
@@ -3104,17 +3271,40 @@ def phase_lm_serve(dev):
     return model, params, lm_serve(dev, model, params)
 
 
-def lm_prefill(dev, model, params, record=()):
-    """One ``LM_PREFILL_S``-token ``Model.forward`` through the kernels,
-    after one untimed call (its allocations and library set-up): kernel
-    7 and 8 launched ``lm_attention_launches`` / ``lm_norm_launches``
+def depth_cut(cfg, params, depth):
+    """(cfg, params) of a model's first ``depth`` layers: the stacked
+    leaves' first entries (views) of the dense, MoE and VLM families, an
+    xLSTM's first blocks."""
+    if cfg.family == "xlstm":
+        keep = tuple(f"blocks.{i}." for i in range(depth))
+        return (cfg.with_(n_layers=depth,
+                          xlstm_pattern=cfg.xlstm_pattern[:depth]),
+                {k: v for k, v in params.items()
+                 if not k.startswith("blocks.") or k.startswith(keep)})
+    check(cfg.family in ("dense", "moe", "vlm"),
+          f"no depth cut for the {cfg.family} family")
+    return cfg.with_(n_layers=depth), {
+        k: v[:depth] if k.startswith("layers.") else v
+        for k, v in params.items()}
+
+
+def lm_prefill(dev, model, params, record=(), batch=None, twin_depth=None,
+               warm=True):
+    """One ``Model.forward`` through the kernels over ``batch`` (by
+    default one ``LM_PREFILL_S``-token sequence), after one untimed call
+    (its allocations and library set-up; not with ``warm=False``, for a
+    host-bound model whose set-up is small beside its wall): kernel 7
+    and 8 launched ``lm_attention_launches`` / ``lm_norm_launches``
     times, finite logits, the card's busy time and kernel 7's share of
-    it, the plain twin bit-identical (logits and aux), chunked attention
-    within 1e-4·max|logits| (an MoE model's routed as the kernel run
-    was, ``pinned_routing``; its own routing's flips are counted).
-    ``record`` names (owner, attribute, keep) to record (``recording``)
-    during the plain twin's run.  Returns (launch counts, aux, the plain
-    twin's MoE dispatches, the recorded calls)."""
+    it, the plain twin bit-identical (logits and aux; with
+    ``twin_depth``, both at that depth, ``depth_cut``, since the plain
+    attention of a deep model takes a minute), chunked attention within
+    1e-4·max|logits| (an MoE model's routed as the kernel run was,
+    ``pinned_routing``; its own routing's flips are counted; a model
+    without attention has no such A/B).  ``record`` names (owner,
+    attribute, keep) to record (``recording``) during the plain twin's
+    run.  Returns (launch counts, aux, the plain twin's MoE dispatches,
+    the recorded calls, the logits)."""
     import torch
 
     from repro_torch.kernels import ops
@@ -3123,16 +3313,26 @@ def lm_prefill(dev, model, params, record=()):
 
     cfg = model.cfg
     twin = Model(cfg, use_kernel=False)
-    toks = torch.randint(0, cfg.vocab_size, (1, LM_PREFILL_S), device=dev,
-                         generator=torch.Generator(device=dev).manual_seed(2))
-    batch = {"tokens": toks}
-    s = LM_PREFILL_S
+    if batch is None:
+        batch = {"tokens": torch.randint(
+            0, cfg.vocab_size, (1, LM_PREFILL_S), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(2))}
+    toks = batch["tokens"]
+    b, s = toks.shape
+    s_enc = (batch["encoder_embeddings"].shape[1]
+             if "encoder_embeddings" in batch else 0)
+    prefix = (batch["patch_embeddings"].shape[1]
+              if "patch_embeddings" in batch else 0)
+    what = (f"{b} x {s} tokens" + (f" and {s_enc} encoder frames"
+                                   if s_enc else "")
+            + (f" after {prefix} patches" if prefix else ""))
     with torch.no_grad():
-        t0 = time.perf_counter()
-        model.forward(params, batch)
-        torch.cuda.synchronize()
-        log(f"  first forward (allocations, library set-up): wall "
-            f"{time.perf_counter() - t0:.3f} s")
+        if warm:
+            t0 = time.perf_counter()
+            model.forward(params, batch)
+            torch.cuda.synchronize()
+            log(f"  first forward (allocations, library set-up): wall "
+                f"{time.perf_counter() - t0:.3f} s")
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3140,8 +3340,8 @@ def lm_prefill(dev, model, params, record=()):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(ops.LAUNCHES)
-        ops_n = lm_prefill_flops(cfg, s)
-        log(f"  forward, 1 x {s} tokens, impl=None -> "
+        ops_n = lm_prefill_flops(cfg, s, b, s_enc, prefix)
+        log(f"  forward, {what}, impl=None -> "
             f"{model.resolve_impl(None, toks.device)!r}: wall {wall:.3f} s, "
             f"{ops_n / wall / 1e12:.1f} TFLOP/s of {ops_n / 1e12:.2f} TFLOP "
             f"(bound {1e3 * ops_n / PEAK_FP32_FLOPS:.0f} ms at the fp32 "
@@ -3152,7 +3352,7 @@ def lm_prefill(dev, model, params, record=()):
               f"{n_attn}")
         check(launches["rmsnorm"] == n_norm,
               f"kernel 8 launched {launches['rmsnorm']} times, not {n_norm}")
-        check(tuple(logits.shape) == (1, s, cfg.vocab_size)
+        check(tuple(logits.shape) == (b, s, cfg.vocab_size)
               and bool(torch.isfinite(logits).all()),
               f"prefill logits {tuple(logits.shape)} not finite")
         pwall, busy, by_name = device_busy_share(
@@ -3172,20 +3372,32 @@ def lm_prefill(dev, model, params, record=()):
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
             log("  busiest device activities: " + "; ".join(
                 f"{k.split('(')[0][-50:]} {1e3 * v:.1f} ms" for k, v in top))
-            check(fa > 0, "the profiled prefill ran no kernel 7")
+            check(fa > 0 or not n_attn,
+                  "the profiled prefill ran no kernel 7")
         with contextlib.ExitStack() as stack:
             routed = stack.enter_context(recording(moe, "dispatch"))
             recorded = [stack.enter_context(recording(*r)) for r in record]
+            want, waux, tparams, depth = logits, aux, params, ""
+            if twin_depth and twin_depth < cfg.n_layers:
+                check(not (record or cfg.n_experts),
+                      "a depth-cut twin records nothing")
+                ccfg, tparams = depth_cut(cfg, params, twin_depth)
+                twin = Model(ccfg, use_kernel=False)
+                want, waux, _ = Model(ccfg).forward(tparams, batch)
+                depth = (f" at depth {twin_depth} of {cfg.n_layers}, "
+                         f"against the kernels at that depth")
             t0 = time.perf_counter()
-            plain, paux, _ = twin.forward(params, batch, impl="kernel")
+            plain, paux, _ = twin.forward(tparams, batch, impl="kernel")
             torch.cuda.synchronize()
-        log(f"  plain twin (the kernels' plain versions): wall "
-            f"{time.perf_counter() - t0:.3f} s; bit-identical "
-            f"{torch.equal(plain, logits) and torch.equal(paux, aux)}")
-        check(torch.equal(plain, logits) and torch.equal(paux, aux),
-              "the plain twin's prefill logits are not bit-identical: max "
-              f"abs {float((plain - logits).abs().max()):.3e}")
-        del plain
+        same = torch.equal(plain, want) and torch.equal(paux, waux)
+        log(f"  plain twin (the kernels' plain versions){depth}: wall "
+            f"{time.perf_counter() - t0:.3f} s; bit-identical {same}")
+        check(same, "the plain twin's prefill logits are not bit-identical: "
+              f"max abs {float((plain - want).abs().max()):.3e}")
+        del plain, want
+        if not n_attn:
+            log("  no attention, so no chunked A/B")
+            return launches, aux, routed, recorded, logits
         scale = float(logits.abs().max())
         pin = contextlib.nullcontext()
         if cfg.n_experts:
@@ -3209,7 +3421,7 @@ def lm_prefill(dev, model, params, record=()):
             f"abs {err:.3e} against the kernel's, max|logits| {scale:.3f}")
         check(err <= 1e-4 * scale, f"chunked attention's prefill is "
               f"{err:.3e} from the kernel's (limit {1e-4 * scale:.3e})")
-    return launches, aux, routed, recorded
+    return launches, aux, routed, recorded, logits
 
 
 def phase_lm_prefill(dev, model, params):
@@ -3782,7 +3994,7 @@ def phase_lm_moe(dev):
                     "40.5 GiB of fp32 weights, and the prefill)")
     model, params = draw_lm(dev, cfg)
     log(f"  (a) prefill of {LM_PREFILL_S} tokens")
-    launches, aux, routed, _ = lm_prefill(dev, model, params)
+    launches, aux, routed = lm_prefill(dev, model, params)[:3]
     e = cfg.n_experts
     cap = moe._capacity(LM_PREFILL_S, e, cfg.moe_capacity_factor)
     loads = [torch.bincount(args[0], minlength=e).tolist()
@@ -3826,7 +4038,7 @@ def phase_lm_hybrid(dev):
     model, params = draw_lm(dev, cfg)
     log(f"  (a) prefill of {LM_PREFILL_S} tokens")
     launches, aux, _, (ssd,) = lm_prefill(
-        dev, model, params, record=[(mamba2, "ssd_chunked", 1)])
+        dev, model, params, record=[(mamba2, "ssd_chunked", 1)])[:4]
     check(float(aux) == 0.0, f"the hybrid's aux is {float(aux)}, not 0")
     (x, a, B, C, chunk), (y, h) = ssd[0]
     del ssd
@@ -3850,6 +4062,136 @@ def phase_lm_hybrid(dev):
     del x, a, B, C, y, h, ys, hs
     log("  (b) serving")
     return launches, lm_serve(dev, model, params)
+
+
+# ---------------------------------------------------------------------------
+# phases 22-24: the xLSTM, audio and VLM LM families
+# ---------------------------------------------------------------------------
+
+def phase_lm_xlstm(dev):
+    """Phase 22; returns the launch counts of the prefill and of the
+    served run."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(XLSTM_ARCH)
+    check_lm_memory(dev, XLSTM_MIN_FREE_GIB,
+                    f"phase 22 ({cfg.arch_id}: 0.29 GiB of fp32 weights; "
+                    "the mLSTM's (B, S, H, hd+1, hd) buffers of the "
+                    "prefill, 2.3 GiB each)")
+    model, params = draw_lm(dev, cfg)
+    log(f"  (ModelConfig.param_count's analytic count: "
+        f"{cfg.param_count():,}; it halves a pair of blocks and counts no "
+        f"bias)")
+    log(f"  (a) prefill of {LM_PREFILL_S} tokens: each sLSTM block is "
+        f"{LM_PREFILL_S} dependent cell steps")
+    launches = lm_prefill(dev, model, params, twin_depth=XLSTM_TWIN_DEPTH,
+                          warm=False)[0]
+    log("  (b) serving")
+    return launches, lm_serve(dev, model, params)
+
+
+def phase_lm_audio(dev):
+    """Phase 23; returns the launch counts of the forward, of the served
+    run (over the zero encoder ``init_decode_state`` makes) and of the
+    decode run over the forward's frames."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+
+    cfg = get_config(AUDIO_ARCH)
+    check_lm_memory(dev, AUDIO_MIN_FREE_GIB,
+                    f"phase 23 ({cfg.arch_id}: 0.14 GiB of fp32 weights, "
+                    "the forward's logits 0.37 GiB)")
+    model, params = draw_lm(dev, cfg)
+    b, frames, text = (AUDIO_SHAPE[k] for k in ("batch", "frames", "text"))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # the frontend stub's frame embeddings, drawn from a seed
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, text),
+                                     generator=gen, device=dev),
+             "encoder_embeddings": torch.randn(b, frames, cfg.d_model,
+                                               generator=gen, device=dev)}
+    log(f"  (a) forward, batch {b}: {frames} encoder frames (30 s of "
+        f"audio) and {text} text tokens")
+    launches, _, _, _, logits = lm_prefill(dev, model, params, batch=batch)
+    s_enc = max(1, int(sum(LM_SERVE[k] for k in ("prompt_len", "gen"))
+                       * cfg.enc_seq_frac))
+    log(f"  (b) serving over the zero encoder of {s_enc} frames that "
+        f"init_decode_state makes for a cache of "
+        f"{LM_SERVE['prompt_len'] + LM_SERVE['gen']}")
+    slaunches = lm_serve(dev, model, params, fwd_extra={
+        "encoder_embeddings": torch.zeros(LM_SERVE["batch"], s_enc,
+                                          cfg.d_model, device=dev)})
+    log(f"  (c) {text} decode steps over the forward's {frames} frames "
+        f"against its logits")
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        st = model.init_decode_state(params, b, text, dtype=torch.float32,
+                                     enc_embeddings=batch[
+                                         "encoder_embeddings"])
+        torch.cuda.synchronize()
+        t_enc = time.perf_counter() - t0
+        err = torch.zeros((), device=dev)
+        max_abs = torch.zeros((), device=dev)
+        for t in range(text):
+            lg, st = model.decode_step(params, st,
+                                       batch["tokens"][:, t:t + 1], t)
+            gap = (lg - logits[:, t:t + 1]).abs()
+            max_abs = torch.maximum(max_abs, gap.max())
+            err = torch.maximum(err, (gap / (DECODE_TOL + DECODE_TOL
+                                             * logits[:, t:t + 1].abs())
+                                      ).max())
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dlaunches = dict(ops.LAUNCHES)
+    st_attn, st_norm = lm_decode_state_launches(cfg)
+    log(f"  decode state (the encoder over {frames} frames, K/V of "
+        f"{cfg.n_layers} decoder layers): {t_enc:.3f} s; {text} steps: "
+        f"{1e3 * (wall - t_enc) / text:.2f} ms a step; logits max abs "
+        f"{float(max_abs):.3e} from the forward's (max|logits| "
+        f"{float(logits.abs().max()):.3f}); the worst "
+        f"step's |decode − forward| / ({DECODE_TOL:g} + {DECODE_TOL:g}·"
+        f"|forward|) {float(err):.3f} (at most 1 passes); launches "
+        f"{dlaunches}")
+    check(float(err) <= 1.0, f"decode is not within rtol = atol = "
+          f"{DECODE_TOL:g} of the forward ({float(err):.3f} of it)")
+    check(dlaunches["flash_attention"] == st_attn
+          and dlaunches["rmsnorm"] == st_norm
+          + text * lm_norm_launches(cfg, decode=True),
+          f"the decode run launched {dlaunches}")
+    return launches, slaunches, dlaunches
+
+
+def phase_lm_vlm(dev):
+    """Phase 24; returns the launch counts of the prefill and of the
+    served run."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(VLM_ARCH)
+    check_lm_memory(dev, VLM_MIN_FREE_GIB,
+                    f"phase 24 ({cfg.arch_id}: 47.58 GiB of fp32 weights, "
+                    "and the prefill)")
+    model, params = draw_lm(dev, cfg)
+    p = model._n_patches(LM_PREFILL_S)
+    text = model._text_len(LM_PREFILL_S)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    # the ViT stub's patch embeddings, drawn from a seed
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, text),
+                                     generator=gen, device=dev),
+             "patch_embeddings": torch.randn(1, p, cfg.d_model,
+                                             generator=gen, device=dev)}
+    log(f"  (a) prefill of {LM_PREFILL_S} positions: {p} patch embeddings "
+        f"and {text} tokens")
+    launches = lm_prefill(dev, model, params, batch=batch,
+                          twin_depth=VLM_TWIN_DEPTH)[0]
+    log("  (b) serving (the dense decode: the tokens never see a patch)")
+    return launches, lm_serve(dev, model, params, fwd_extra={
+        "patch_embeddings": torch.zeros(LM_SERVE["batch"], 0, cfg.d_model,
+                                        device=dev)})
 
 
 T0 = time.time()          # the script's start, shared with its lanes
@@ -3949,9 +4291,9 @@ def char_lm_clients():
 
 
 def lane_sync_cnn():
-    """Phases 3-7 and 12-15; returns the launch counts of the sync, CNN
-    fleet, async, faulted CNN fleet and async fleet paths, and of phase
-    15's resumed fleet, resumed async fleet and projected sync round."""
+    """Phases 3-7, 12, 14 and 15; returns the launch counts of the sync,
+    CNN fleet, async and async fleet paths, and of phase 15's resumed
+    fleet, resumed async fleet and projected sync round."""
     with phase("main_path", "3: main path, FedCore on SmallCNN (28x28, "
                "16/32, F=1568), 200 clients, 3 rounds x 10 clients, E=5"):
         clients, cfg, kout, kstrat, launches, shapes = phase_main_path()
@@ -3972,10 +4314,6 @@ def lane_sync_cnn():
                "FedCore on SmallCNN (28x28, 16/32, F=1568), phase 3's 200 "
                "clients, FedBuff(10), 3 updates, concurrency 10, E=5"):
         alaunches = phase_async(clients)
-    with phase("fleet_faults", "13: faults on the CNN fleet, 'hostile' with "
-               "the trimmed mean, the robust rules under 'byzantine_boost', "
-               "a faulted sync scenario"):
-        xlaunches = phase_fleet_faults(wl, fclients, fspecs, fcfg, clients)
     with phase("async_fleet", "14: async fleet main path, "
                "run_async_fleet(engine='batched') on phase 6's fleet, "
                "FedBuff, 3 flushes of 32, concurrency 64, E=5; its plain "
@@ -3990,7 +4328,7 @@ def lane_sync_cnn():
         plaunches = phase_projected_sync(clients, cfg)
         phase_epsilon_audit(clients, kout["params"])
     return {"sync": launches, "fleet": flaunches, "async": alaunches,
-            "fleet_faults": xlaunches, "async_fleet": aflaunches,
+            "async_fleet": aflaunches,
             "fleet_resume": rlaunches, "async_fleet_resume": arlaunches,
             "sync_projected": plaunches}
 
@@ -4019,7 +4357,8 @@ def lane_translm():
 
 
 def lane_xlstm():
-    """Phases 10-11; returns the launch counts of the xlstm fleet."""
+    """Phases 10, 11 and 13; returns the launch counts of the xlstm fleet
+    and of the faulted CNN fleet."""
     with phase("xlstm", "10: xlstm fleet, run_fleet(engine='batched') on "
                "CharXLSTM (d_model 32, 2 heads of 16, S=16), 200 clients, "
                "every client every round, 3 rounds, E=5"):
@@ -4029,7 +4368,20 @@ def lane_xlstm():
                "(b) the plain RMSNorm, (c) engine='loop', (d) the scenario "
                "registry's fleet and sync runtimes"):
         phase_xlstm_ab(xwl, xclients, xspecs, xcfg, xkept)
-    return {"fleet_xlstm": xlaunches}
+    with phase("fleet_faults", "13: faults on the CNN fleet, 'hostile' with "
+               "the trimmed mean, the robust rules under 'byzantine_boost', "
+               "a faulted sync scenario"):
+        # phase 6's fleet and phase 3's clients, made anew from their
+        # seeds: this lane is the shortest of the three without it
+        from repro_torch.data import mnist_like_dataset
+
+        wl = cnn_fleet_workload()
+        fclients = wl.make_clients()
+        fspecs, fcfg, _ = fleet_setup(wl, fclients)
+        flaunches = phase_fleet_faults(
+            wl, fclients, fspecs, fcfg,
+            mnist_like_dataset(n_clients=200, seed=0))
+    return {"fleet_xlstm": xlaunches, "fleet_faults": flaunches}
 
 
 def lane_lm():
@@ -4075,8 +4427,9 @@ def lane_sharded():
 
 
 def lane_lm_families():
-    """Phases 20-21; returns the launch counts of the MoE and hybrid LM
-    paths: prefill and serving of each."""
+    """Phases 20-24; returns the launch counts of the MoE, hybrid, xLSTM,
+    audio and VLM LM paths: prefill and serving of each, and the audio
+    model's decode over its frames."""
     import gc
 
     import torch
@@ -4099,8 +4452,36 @@ def lane_lm_families():
                f"32000, fp32): prefill of {LM_PREFILL_S} tokens, generate "
                "with batch 4, prompt 16, 32 greedy tokens"):
         hprefill, hserve = phase_lm_hybrid(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("lm_xlstm", "22: xLSTM LM, xlstm-125m at its published "
+               "widths and depth (blocks msmsmsmsmsms, d_model 768, 4 "
+               "heads of 192, tied vocab 50304, fp32): prefill of "
+               f"{LM_PREFILL_S} tokens, generate with batch 4, prompt 16, "
+               "32 greedy tokens"):
+        xprefill, xserve = phase_lm_xlstm(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("lm_audio", "23: audio LM, whisper-tiny at its published "
+               "widths and depth (4 + 4 layers, d_model 384, 6 heads of "
+               "64, d_ff 1536, vocab 51865, fp32): forward over 4 x (1,500 "
+               "frames + 448 tokens), generate with batch 4, prompt 16, 32 "
+               "greedy tokens, 448 decode steps over the frames"):
+        aprefill, aserve, adecode = phase_lm_audio(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("lm_vlm", "24: VLM, pixtral-12b at its published widths "
+               "and depth (40 layers, d_model 5120, 32/8 heads of 160, "
+               "d_ff 14336, vocab 131072, fp32): prefill of 1,024 patches "
+               "and 3,072 tokens, generate with batch 4, prompt 16, 32 "
+               "greedy tokens"):
+        vprefill, vserve = phase_lm_vlm(dev)
     return {"lm_moe_prefill": mprefill, "lm_moe_serve": mserve,
-            "lm_hybrid_prefill": hprefill, "lm_hybrid_serve": hserve}
+            "lm_hybrid_prefill": hprefill, "lm_hybrid_serve": hserve,
+            "lm_xlstm_prefill": xprefill, "lm_xlstm_serve": xserve,
+            "lm_audio_prefill": aprefill, "lm_audio_serve": aserve,
+            "lm_audio_decode": adecode, "lm_vlm_prefill": vprefill,
+            "lm_vlm_serve": vserve}
 
 
 def lane_main(name: str, parent: int) -> int:
@@ -4232,8 +4613,8 @@ def main() -> int:
     shutil.rmtree(LANE_DIR, ignore_errors=True)
     LANE_DIR.mkdir(parents=True)
     log(f"[{time.time() - T0:.0f} s] == phases 3-15 in three concurrent "
-        f"lanes: 3-7 and 12-15 ({LANES[0]}), 8-9 ({LANES[1]}), 10-11 "
-        f"({LANES[2]})")
+        f"lanes: 3-7, 12, 14 and 15 ({LANES[0]}), 8-9 ({LANES[1]}), 10, "
+        f"11 and 13 ({LANES[2]})")
     by_path, lane_phases, solve_shapes = run_lanes(LANES)
     log(f"[{time.time() - T0:.0f} s] == phases 16-18 in lane "
         f"{LM_LANES[0]}, alone: its GPU-bound prefill would stretch the "
@@ -4243,7 +4624,7 @@ def main() -> int:
         f"{SHARDED_LANES[0]}, alone: its {SHARDED_RANKS} ranks are two more "
         f"processes on the card")
     sh_path, sh_phases, _ = run_lanes(SHARDED_LANES)
-    log(f"[{time.time() - T0:.0f} s] == phases 20-21 in lane "
+    log(f"[{time.time() - T0:.0f} s] == phases 20-24 in lane "
         f"{FAMILY_LANES[0]}, alone: its prefills are GPU-bound, as lane "
         f"{LM_LANES[0]}'s")
     fam_path, fam_phases, _ = run_lanes(FAMILY_LANES)

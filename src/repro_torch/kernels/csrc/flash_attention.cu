@@ -91,7 +91,8 @@
 // dim, every thread computes a 4 x 4 block of scores in registers, the
 // scores go to shared memory (over K's space), 64 threads take the row
 // maxima and the row sums in order, and every thread keeps 4 rows x hd/16
-// columns of acc in registers.
+// columns of acc in registers.  Instances pad the head dim to 16, 32, 64,
+// 128 or 160 (pixtral-12b's; the TPU kernel takes any hd).
 #include <cuda.h>            // CUtensorMap and its enums: types only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -372,7 +373,12 @@ int launch_fp32_hd(const float* q, const float* k, const float* v,
   if (hd <= 64)
     return launch_fp32_pack<64>(q, k, v, out, b, hq, hk, s, hd, causal,
                                 window, scale, st);
-  return launch_fp32_pack<128>(q, k, v, out, b, hq, hk, s, hd, causal,
+  if (hd <= 128)
+    return launch_fp32_pack<128>(q, k, v, out, b, hq, hk, s, hd, causal,
+                                 window, scale, st);
+  // pixtral-12b's head dim: 40 accumulators a thread, 123,904 B of
+  // shared memory
+  return launch_fp32_pack<160>(q, k, v, out, b, hq, hk, s, hd, causal,
                                window, scale, st);
 }
 
@@ -914,9 +920,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* out,
 
 // q (B, Hq, S, ld), k/v (B, Hk, S, ld) -> out (B, Hq, S, hd); all of one
 // type (fp32, or bf16 when is_bf16), contiguous, on the device; Hq a
-// multiple of Hk, 1 <= hd <= 128; window 0 = no window.  The fp32 path
-// takes ld == hd; the bf16 path a row length ld >= hd that is a multiple
-// of 8 (the columns past hd zero) and q, k, v 16-byte aligned.  Launches
+// multiple of Hk; window 0 = no window.  The fp32 path takes ld == hd
+// and 1 <= hd <= 160; the bf16 path 1 <= hd <= 128 and a row length
+// ld >= hd that is a multiple of 8 (the columns past hd zero) and q, k, v
+// 16-byte aligned.  Launches
 // on `stream`; returns cudaGetLastError() (or the error of a refused
 // argument) so the caller can raise.
 extern "C" int fedcore_flash_attention(const void* q, const void* k,
@@ -924,7 +931,8 @@ extern "C" int fedcore_flash_attention(const void* q, const void* k,
                                        int hq, int hk, int s, int hd, int ld,
                                        int causal, int window, int is_bf16,
                                        float scale, void* stream) {
-  if (hd < 1 || hd > 128 || hk < 1 || hq % hk != 0 || window < 0)
+  if (hd < 1 || hd > (is_bf16 ? 128 : 160) || hk < 1 || hq % hk != 0 ||
+      window < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b * hq == 0 || s == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

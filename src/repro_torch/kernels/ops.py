@@ -402,6 +402,11 @@ def _delta_sweep_from_feats_launch(x: torch.Tensor, d1: torch.Tensor,
 # flash attention: one autograd.Function for every call
 # ---------------------------------------------------------------------------
 
+# the largest head dim of each kernel path: the fp32 SIMT kernel's widest
+# instance, and the bf16 kernel's two 64-column regions of a tile
+FLASH_MAX_HEAD_DIM = {"fp32": 160, "bf16": 128}
+
+
 def _flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, causal: bool,
                             window: Optional[int],
@@ -419,13 +424,16 @@ def _flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     if hk < 1 or hq % hk:
         raise ValueError(f"flash_attention: {hq} q heads are no multiple "
                          f"of {hk} kv heads")
-    if not 1 <= hd <= 128:
-        raise ValueError(f"flash_attention: head dim {hd} outside 1..128")
     if q.dtype not in (torch.float32, torch.bfloat16) or \
             k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_attention: q, k and v must all be float32 "
                         f"or all bfloat16, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
+    bf16 = q.dtype == torch.bfloat16
+    max_hd = FLASH_MAX_HEAD_DIM["bf16" if bf16 else "fp32"]
+    if not 1 <= hd <= max_hd:
+        raise ValueError(f"flash_attention: head dim {hd} outside 1.."
+                         f"{max_hd} for {q.dtype} (the kernel's limit)")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v lie on different "
                          "devices")
@@ -433,7 +441,6 @@ def _flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_attention: window {window} < 1")
     q, k, v = _contiguous(q), _contiguous(k), _contiguous(v)
     out = torch.empty((b, hq, s, hd), dtype=q.dtype, device=q.device)
-    bf16 = q.dtype == torch.bfloat16
     ld = hd
     if bf16:      # TMA's rows: a multiple of 8 elements, 16-byte aligned
         ld = -(-hd // 8) * 8

@@ -1,11 +1,15 @@
-"""Batched serving launcher of the port: prefill + KV-cache / Mamba-state
-decode with greedy / temperature sampling, for the dense, MoE, SSM and
-hybrid configs.
+"""Batched serving launcher of the port: prefill + KV-cache / recurrent
+state decode with greedy / temperature sampling, for every family's
+configs.  As in the JAX package, an audio model serves over the zero
+encoder that ``Model.init_decode_state`` makes (half the cache's length
+in frames), and a VLM's decode sees no patches.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b --smoke \
       --batch 4 --prompt-len 16 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch llama4-scout-17b-a16e --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-tiny \
+      --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny --device cpu
 """
 from __future__ import annotations

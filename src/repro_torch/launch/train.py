@@ -1,7 +1,7 @@
 """End-to-end training launcher of the port (one card).
 
-Trains a decoder LM (any dense arch id's smoke variant, or a named
-preset) on a synthetic token stream, with optional **FedCore-for-LM**:
+Trains a decoder LM (any arch id's smoke variant, or a named preset) on
+a synthetic token stream, with optional **FedCore-for-LM**:
 the stream is split into "client silos"; silos whose per-round token
 budget exceeds their simulated capability train on a coreset selected by
 last-layer-gradient k-medoids — the paper's algorithm applied at LM
@@ -55,7 +55,10 @@ def synthetic_stream(vocab: int, batch: int, seq: int, seed: int = 0,
                      device: DeviceLike = None):
     """Markov-ish synthetic token batches (learnable structure), drawn
     with the JAX package's numpy RNG calls in its order, so the tokens
-    are byte for byte the reference's; int32 tensors on ``device``."""
+    are byte for byte the reference's; int32 tensors on ``device``.  The
+    batches hold tokens only, as the reference's: an audio or VLM model's
+    forward finds no ``encoder_embeddings`` / ``patch_embeddings`` in
+    them and raises ``KeyError``, in both packages."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     # sparse bigram table

@@ -20,11 +20,11 @@ naive attention's.
 
 One-token decode (``attention_decode``) reads a KV cache of the whole
 sequence, or a ring of ``attention_window`` slots; it is plain PyTorch,
-as the JAX package computes it in plain jnp.  Parameters are a dict of
-(d_in, d_out) matrices ``wq``, ``wk``, ``wv``, ``wo``; activations are
-(B, S, H, hd) between the projections, as in the JAX package.
-Cross-attention decode comes with the audio and VLM models (ROADMAP
-item 16e) and raises ``NotImplementedError`` here.
+as the JAX package computes it in plain jnp; so is the audio decoder's
+cross-attention decode (``cross_attention_decode``) over the encoder's
+precomputed K/V.  Parameters are a dict of (d_in, d_out) matrices
+``wq``, ``wk``, ``wv``, ``wo``; activations are (B, S, H, hd) between
+the projections, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -41,7 +41,10 @@ from repro_torch.models.layers import apply_rope, dense_init
 Params = Dict[str, torch.Tensor]
 
 
-def init_attention(generator: torch.Generator, cfg: ModelConfig) -> Params:
+def init_attention(generator: torch.Generator, cfg: ModelConfig,
+                   cross: bool = False) -> Params:
+    """``wq``, ``wk``, ``wv``, ``wo``; a cross-attention (``cross``) has
+    the same leaves, its k and v projecting the encoder's states."""
     d, hq, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     return {"wq": dense_init(generator, d, hq * hd),
             "wk": dense_init(generator, d, hk * hd),
@@ -143,6 +146,16 @@ def _attend_chunked(q, k, v, q_pos, k_pos, causal, window, scale,
     return torch.cat(outs, dim=1)
 
 
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w under the JAX package's type promotion: bf16 activations
+    (the audio encoder's input in a bf16 decode state) against fp32
+    weights multiply in fp32."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return x @ w
+
+
 def multihead_attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
                         positions: Optional[torch.Tensor] = None, *,
                         causal: bool = True, window: Optional[int] = None,
@@ -168,9 +181,9 @@ def multihead_attention(params: Params, cfg: ModelConfig, x: torch.Tensor,
         kv_positions = (positions if kv_x is None
                         else torch.arange(sk, device=x.device))
 
-    q = (x @ params["wq"]).reshape(b, s, hq, hd)
-    k = (src @ params["wk"]).reshape(b, sk, hk, hd)
-    v = (src @ params["wv"]).reshape(b, sk, hk, hd)
+    q = _project(x, params["wq"]).reshape(b, s, hq, hd)
+    k = _project(src, params["wk"]).reshape(b, sk, hk, hd)
+    v = _project(src, params["wv"]).reshape(b, sk, hk, hd)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, kv_positions, cfg.rope_theta)
@@ -257,8 +270,18 @@ def attention_decode(params: Params, cfg: ModelConfig, x: torch.Tensor,
     return out.reshape(b, 1, hq * hd) @ params["wo"], cache_k, cache_v
 
 
-def cross_attention_decode(*args, **kwargs):
-    """Decode-time cross attention: not ported yet."""
-    raise NotImplementedError(
-        "cross-attention decode comes with the audio and VLM models: "
-        "ROADMAP item 16e")
+def cross_attention_decode(params: Params, cfg: ModelConfig,
+                           x: torch.Tensor, enc_k: torch.Tensor,
+                           enc_v: torch.Tensor) -> torch.Tensor:
+    """Decode-time cross attention over precomputed encoder K/V.
+
+    x: (B, 1, d); enc_k/enc_v: (B, S_enc, Hk, hd).  q from x, no RoPE,
+    every encoder position visible, softmax in float32; returns (B, 1,
+    d)."""
+    b = x.shape[0]
+    hq, hd = cfg.n_heads, cfg.d_head
+    q = (x @ params["wq"]).reshape(b, 1, hq, hd)
+    s = _gqa_scores(q, enc_k.to(q.dtype)) * _scale(hd)      # (B,Hq,1,Se)
+    p = torch.softmax(s.float(), dim=-1)
+    out = _gqa_out(p, enc_v).to(x.dtype)                     # (B,1,Hq,hd)
+    return out.reshape(b, 1, hq * hd) @ params["wo"]

@@ -264,13 +264,9 @@ def test_multihead_attention_matches_reference(window):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-def test_unported_attention_paths_raise():
+def test_unknown_attention_impl_raises():
     cfg = ModelConfig(d_model=32, n_heads=2, n_kv_heads=2)
     p = tattn.init_attention(torch.Generator().manual_seed(0), cfg)
     x = torch.zeros(1, 4, 32)
-    # chunked attention and the KV-cache decode are ported; cross-
-    # attention decode waits for the audio and VLM models
-    with pytest.raises(NotImplementedError, match="item 16e"):
-        tattn.cross_attention_decode()
     with pytest.raises(ValueError, match="unknown attention impl"):
         tattn.multihead_attention(p, cfg, x, impl="pallas")

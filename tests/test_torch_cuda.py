@@ -717,10 +717,17 @@ def _bf16_rule(got, q, k, v, causal, window):
     (1, 2, 2, 64, 128, None, torch.float32),
     (1, 2, 2, 128, 64, None, torch.bfloat16),
     (3, 2, 2, 40, 16, None, torch.float32),
-    (2, 4, 2, 100, 32, 16, torch.bfloat16)])
+    (2, 4, 2, 100, 32, 16, torch.bfloat16),
+    # whisper-tiny's encoder (1,500 frames: no multiple of 64) and a
+    # small ragged case; pixtral-12b's GQA 32/8 at hd 160
+    (1, 6, 6, 1500, 64, None, torch.float32),
+    (2, 3, 3, 70, 64, None, torch.float32),
+    (1, 8, 2, 200, 160, None, torch.float32),
+    (1, 4, 1, 130, 160, 48, torch.float32)])
 def test_flash_attention_kernel_matches_plain(cuda, b, hq, hk, s, hd,
                                               window, dtype):
-    """fp32: bit for bit; bf16: the tensor-core path's rule."""
+    """fp32: bit for bit; bf16: the tensor-core path's rule; causal and
+    not."""
     q, k, v = _qkv(b, hq, hk, s, hd, dtype, cuda)
     for causal in (True, False):
         ops.reset_launch_counts()
@@ -732,6 +739,16 @@ def test_flash_attention_kernel_matches_plain(cuda, b, hq, hk, s, hd,
         else:
             _same(got, ref.flash_attention_ref(q, k, v, causal=causal,
                                                window=window))
+
+
+def test_flash_attention_head_dim_limits(cuda):
+    """fp32 takes head dims up to 160, bf16 up to 128; beyond, the
+    wrapper raises naming the limit."""
+    for hd, dtype, limit in ((161, torch.float32, 160),
+                             (160, torch.bfloat16, 128)):
+        q, k, v = _qkv(1, 2, 2, 16, hd, dtype, cuda)
+        with pytest.raises(ValueError, match=f"outside 1..{limit}"):
+            ops.flash_attention(q, k, v)
 
 
 @pytest.mark.parametrize("hd", [16, 64, 100, 128])
@@ -960,6 +977,23 @@ def _model_matches_plain_twin(dev, cfg):
     n_attn = ((cfg.n_layers // cfg.attn_every if cfg.attn_every else 0)
               if ssm else cfg.n_layers)
     n_norm = 2 * cfg.n_layers + 1 + (2 * n_attn if ssm else 0)
+    n_step_norm = n_norm
+    if cfg.family == "xlstm":
+        # an mLSTM block has one norm, an sLSTM block two
+        n_attn = 0
+        n_norm = n_step_norm = len(cfg.xlstm_pattern) + \
+            cfg.xlstm_pattern.count("s") + 1
+    if cfg.family == "audio":
+        # the encoder (non-causal, 70 frames: ragged) and the decoder's
+        # self-attention through kernel 7; ln_x a decoder layer more
+        batch["encoder_embeddings"] = torch.randn(
+            2, 70, cfg.d_model, generator=gen, device=dev)
+        n_attn = cfg.enc_layers + cfg.n_layers
+        n_step_norm = 3 * cfg.n_layers + 1
+        n_norm = 2 * cfg.enc_layers + 1 + n_step_norm
+    if cfg.family == "vlm":
+        batch["patch_embeddings"] = torch.randn(
+            2, cfg.n_patches, cfg.d_model, generator=gen, device=dev)
     ops.reset_launch_counts()
     logits, aux, _ = model.forward(params, batch)
     torch.cuda.synchronize()
@@ -985,7 +1019,8 @@ def _model_matches_plain_twin(dev, cfg):
         b, states[1] = twin.decode_step(params, states[1],
                                         tokens[:, t:t + 1], t)
         _same(a, b)
-    assert ops.LAUNCHES["rmsnorm"] == 8 * n_norm
+    assert ops.LAUNCHES["rmsnorm"] == 8 * n_step_norm
+    assert ops.LAUNCHES["flash_attention"] == 0
 
 
 @pytest.mark.parametrize("arch", ["yi-9b", "granite-20b", "command-r-35b"])
@@ -1013,3 +1048,50 @@ def test_moe_and_hybrid_model_kernel_forward_equals_plain_twin(cuda, arch,
                                   get_config(arch, smoke=True).with_(**kw))
     finally:
         torch.backends.cudnn.deterministic = prev
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "whisper-tiny",
+                                  "pixtral-12b"])
+def test_xlstm_audio_vlm_model_kernel_forward_equals_plain_twin(cuda, arch):
+    """The xLSTM (kernel 8 only), audio (kernel 7 non-causal in the
+    encoder, causal in the decoder) and VLM (a patch prefix) smoke
+    models, as the dense ones."""
+    from repro_torch.configs import get_config
+
+    _model_matches_plain_twin(cuda, get_config(arch, smoke=True))
+
+
+def test_audio_decode_state_runs_the_encoder_through_the_kernels(cuda):
+    """``init_decode_state`` over frames runs the encoder once through
+    kernels 7 and 8; the encoder K/V equal the plain twin's bit for bit,
+    and the decode logits match the forward's within 3e-4 (the
+    reference's decode tolerance)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = get_config("whisper-tiny", smoke=True)
+    model, twin = Model(cfg), Model(cfg, use_kernel=False)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    enc = torch.randn(2, 100, cfg.d_model, generator=gen, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
+                           device=cuda)
+    ops.reset_launch_counts()
+    st = model.init_decode_state(params, 2, 12, dtype=torch.float32,
+                                 enc_embeddings=enc)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == cfg.enc_layers
+    assert ops.LAUNCHES["rmsnorm"] == 2 * cfg.enc_layers + 1
+    tst = twin.init_decode_state(params, 2, 12, dtype=torch.float32,
+                                 enc_embeddings=enc)
+    _same(st["enc_k"], tst["enc_k"])
+    _same(st["enc_v"], tst["enc_v"])
+    outs = []
+    with torch.no_grad():
+        for t in range(12):
+            lg, st = model.decode_step(params, st, tokens[:, t:t + 1], t)
+            outs.append(lg)
+        full, _, _ = model.forward(params, {"tokens": tokens,
+                                            "encoder_embeddings": enc})
+    torch.testing.assert_close(torch.cat(outs, dim=1), full, rtol=3e-4,
+                               atol=3e-4)

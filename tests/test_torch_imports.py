@@ -164,9 +164,9 @@ LM_OPEN_ITEM_NAMES = {"models": set(), "optim": set(),
                       "launch": {"mesh", "make_host_mesh",
                                  "make_production_mesh"}}
 # the public names a reference module defines that belong to open items:
-# the sLSTM half of models/xlstm.py (item 16d)
-LM_OPEN_MODULE_NAMES = {"models.xlstm": {"SLSTMState", "init_slstm",
-                                         "init_slstm_state", "slstm_block"}}
+# none since the sLSTM half of models/xlstm.py was ported; only item 17's
+# launcher names above stay open
+LM_OPEN_MODULE_NAMES = {}
 LM_MODULES = ("models.model", "models.attention", "models.layers",
               "models.training", "models.xlstm", "models.moe",
               "models.mamba2", "optim.optimizers",

@@ -197,12 +197,16 @@ def _jax_prompts(monkeypatch, argv):
 
 
 @pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "zamba2-1.2b",
-                                  "llama4-maverick-400b-a17b"])
+                                  "llama4-maverick-400b-a17b", "xlstm-125m",
+                                  "whisper-tiny", "pixtral-12b"])
 def test_serve_cli_smoke_matches_reference(arch, monkeypatch, capsys):
     """``serve --arch A --smoke`` from the JAX launcher's weights and
     prompts gives its greedy tokens, token for token: the MoE decode (cap
-    8 at batch 4, every expert on 8 mostly empty rows) and the hybrid's
-    Mamba states and shared-block KV caches."""
+    8 at batch 4, every expert on 8 mostly empty rows), the hybrid's
+    Mamba states and shared-block KV caches, the xLSTM blocks' states,
+    whisper over the zero encoder of 10 frames that ``init_decode_state``
+    makes for a cache of 20, and pixtral's decode, which never sees a
+    patch."""
     argv = ["--arch", arch, "--smoke", "--batch", "4", "--prompt-len", "8",
             "--gen", "12"]
     want = np.asarray(jserve.main(argv))
@@ -215,7 +219,8 @@ def test_serve_cli_smoke_matches_reference(arch, monkeypatch, capsys):
     assert f"[serve] arch={arch}" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "zamba2-1.2b",
+                                  "xlstm-125m"])
 def test_train_centralized_new_families_match_reference(arch, monkeypatch):
     """``train --preset A`` (the smoke config): every step's loss, the
     MoE's aux term included, is the reference's on the same weights and
@@ -231,3 +236,24 @@ def test_train_centralized_new_families_match_reference(arch, monkeypatch):
     res = ttrain.main(["--preset", arch, "--steps", "10", "--batch", "4",
                        "--seq", "32", "--lr", "1e-3", "--device", "cpu"])
     assert res["final_loss"] < res["initial_loss"]
+
+
+@pytest.mark.parametrize("arch,key", [("whisper-tiny", "encoder_embeddings"),
+                                      ("pixtral-12b", "patch_embeddings")])
+def test_train_audio_and_vlm_raise_key_error_as_reference(arch, key):
+    """The synthetic stream yields tokens only, so the audio and VLM
+    forwards find no frames or patches: ``KeyError`` in both packages'
+    ``train_centralized`` and ``train_fedcore_lm`` alike."""
+    kw = dict(steps=2, batch=2, seq=8, lr=1e-3, log_every=100, seed=0)
+    fkw = dict(rounds=1, steps_per_epoch=2, silos=2, batch=2, seq=8,
+               lr=1e-3, straggler_pct=50.0, seed=0)
+    jcfg = jtrain.get_config(arch, smoke=True)
+    tcfg = ttrain.get_config(arch, smoke=True)
+    with pytest.raises(KeyError, match=key):
+        jtrain.train_centralized(jcfg, ckpt_dir=None, **kw)
+    with pytest.raises(KeyError, match=key):
+        ttrain.train_centralized(tcfg, ckpt_dir=None, device="cpu", **kw)
+    with pytest.raises(KeyError, match=key):
+        jtrain.train_fedcore_lm(jcfg, **fkw)
+    with pytest.raises(KeyError, match=key):
+        ttrain.train_fedcore_lm(tcfg, device="cpu", **fkw)

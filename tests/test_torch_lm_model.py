@@ -9,8 +9,10 @@ Mamba2 layers, the block after the second).  Forward logits, aux, loss
 and one train step from converted JAX inits; decode rolled over 9
 tokens against JAX's decode and against the port's own forward at the
 reference's 2e-4, a sliding-window ring cache of 4 slots; the input
-specs for every shape; the parameter tree's round trip; the families
-not ported yet.
+specs for every shape (the audio model's encoder frames and the VLM's
+patches too); the parameter tree's round trip; an unknown family.
+``tests/test_torch_lm_encdec.py`` holds the xLSTM, audio and VLM
+families.
 
 An MoE model's routing is checked for near-ties first: each layer's
 smallest gap between the top two router probabilities must exceed
@@ -197,7 +199,9 @@ def test_decode_matches_reference_and_forward(arch, window):
         assert st["kv"]["k"].shape[2] == window
 
 
-@pytest.mark.parametrize("arch", DENSE + [SCOUT, MAVERICK, ZAMBA])
+@pytest.mark.parametrize("arch", DENSE + [SCOUT, MAVERICK, ZAMBA,
+                                  "xlstm-125m", "whisper-tiny",
+                                  "pixtral-12b"])
 def test_input_specs_match_reference(arch):
     jm = JModel(jconfigs.get_config(arch))
     tm = Model(tconfigs.get_config(arch))
@@ -268,11 +272,7 @@ def test_init_draws_on_the_generator_device_and_is_seeded():
     assert torch.equal(a["layers.ln1.scale"], torch.ones(2, 64))
 
 
-@pytest.mark.parametrize("family,item", [("xlstm", "16d"), ("audio", "16e"),
-                                         ("vlm", "16e")])
-def test_families_not_ported_raise(family, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        Model(ModelConfig(family=family))
+def test_unknown_family_raises():
     with pytest.raises(ValueError, match="unknown family"):
         Model(ModelConfig(family="rnn"))
 
