@@ -291,7 +291,23 @@ phases run in order and any failure exits non-zero:
     layers: the plain attention takes ~1.4 s a layer at this shape, and
     phase 2 holds kernel 7 there bit for bit); (b)
     phase 16's serving (81 launches of kernel 8 a decode step: the
-    decode is the dense one and sees no patch).
+    decode is the dense one and sees no patch);
+25. the shape-only dry run (``repro_torch.launch.dryrun.dry_run``) at
+    published widths on the production meshes of a fake world of 512
+    ranks in the lane's own process, for ``DRYRUN_CASES``: yi-9b x
+    prefill_32k x multi and whisper-tiny x decode_32k x single (the
+    reference test's pair), llama4-maverick x train_4k x single in "tp"
+    and "fsdp", zamba2-1.2b, granite-20b and mistral-large-123b (context
+    parallel) x decode_32k x single; each record on a line of its own,
+    ok with bytes a device and FLOPs above 0, and whether the bytes a
+    device fit the card's 80 GB (a count of the trace, not a
+    measurement);
+26. after phase 21, in its lane: ``make_host_mesh()`` on the card (a (1,
+    1) mesh over a world of one, NCCL), zamba2-1.2b's params placed by
+    ``param_specs`` ("tp") as DTensors with ``distribute_tensor``, each
+    local shard bit-identical to its param, and phase 21's 4,096-token
+    prefill from the local shards through kernels 7 and 8 (as many
+    launches as there), bit-identical to phase 21's logits.
 
 Phases 1-2 run alone.  Phases 3-7, 12, 14 and 15 (the sync and async
 runtimes and the CNN fleet), 8-9 (the ``translm`` fleet) and 10, 11 and
@@ -310,8 +326,10 @@ its prefill keeps the card busy for seconds at a time, and the card's
 time slicing between processes would stretch every wait of the
 host-bound lanes (beside them on an H100 it made phase 5 2.3x slower).
 Phase 19 runs next, as the lane ``sharded``, alone: its ranks are two
-more processes on the card.  Phases 20-24 run last, as the lane
-``lm_families``, alone, for the reason lane ``lm`` does.  A lane that
+more processes on the card.  Phases 20-24 and 26 run last, as the lane
+``lm_families``, apart from the host-bound lanes for the reason lane
+``lm`` is; phase 25, which uses no card, runs beside it as the lane
+``dryrun``.  A lane that
 fails stops the others; lanes still running ``LANE_DEADLINE_S`` seconds
 after the start are stopped and the script fails with what they printed
 so far.
@@ -336,12 +354,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 LANE_DIR = ROOT / "build" / "chip_smoke"
 # the lanes of phases 3-15, run concurrently, then the lanes of phases
-# 16-18, of phase 19 and of phases 20-24, each alone (see the module
-# docstring)
+# 16-18 and of phase 19, each alone, and those of phases 20-24 and 26 and
+# of phase 25 together (see the module docstring)
 LANES = ("sync_cnn", "translm", "xlstm")
 LM_LANES = ("lm",)
 SHARDED_LANES = ("sharded",)
-FAMILY_LANES = ("lm_families",)
+# lane ``dryrun`` (phase 25) uses no card: it runs beside lm_families
+FAMILY_LANES = ("lm_families", "dryrun")
 # lanes still running this long after the start are stopped: the whole
 # script must end within 1200 s
 LANE_DEADLINE_S = 1140.0
@@ -465,6 +484,21 @@ VLM_MIN_FREE_GIB = 60.0
 # the plain attention takes ~1.4 s a layer at (1, 32, 8, 4096, 160), and
 # phase 2 holds kernel 7 at that shape bit for bit
 VLM_TWIN_DEPTH = 8
+# phase 25: the shape-only dry run (``repro_torch.launch.dryrun``) at
+# published widths on the fake world's production meshes, as (arch,
+# shape, mesh, sharding, context_parallel): the reference test's pair,
+# llama4-maverick's train step in both modes, the Mamba state rules,
+# MQA's unsharded kv heads and a context-parallel cache
+DRYRUN_CASES = (("yi-9b", "prefill_32k", "multi", "tp", False),
+                ("whisper-tiny", "decode_32k", "single", "tp", False),
+                ("llama4-maverick-400b-a17b", "train_4k", "single", "tp",
+                 False),
+                ("llama4-maverick-400b-a17b", "train_4k", "single", "fsdp",
+                 False),
+                ("zamba2-1.2b", "decode_32k", "single", "tp", False),
+                ("granite-20b", "decode_32k", "single", "tp", False),
+                ("mistral-large-123b", "decode_32k", "single", "tp", True))
+CARD_BYTES = 80e9       # an H100's device memory, for phase 25's count
 # (c)'s local epochs: at phase 10's E = 5 the exponential gating makes a
 # round's result move far beyond 1e-5 under a 1-ulp change of its inputs
 # (the loop and batched engines differ in the matrix products' rounding,
@@ -3288,6 +3322,16 @@ def depth_cut(cfg, params, depth):
         for k, v in params.items()}
 
 
+def prefill_batch(dev, cfg):
+    """``lm_prefill``'s default batch: one ``LM_PREFILL_S``-token sequence
+    drawn from seed 2."""
+    import torch
+
+    return {"tokens": torch.randint(
+        0, cfg.vocab_size, (1, LM_PREFILL_S), device=dev,
+        generator=torch.Generator(device=dev).manual_seed(2))}
+
+
 def lm_prefill(dev, model, params, record=(), batch=None, twin_depth=None,
                warm=True):
     """One ``Model.forward`` through the kernels over ``batch`` (by
@@ -3314,9 +3358,7 @@ def lm_prefill(dev, model, params, record=(), batch=None, twin_depth=None,
     cfg = model.cfg
     twin = Model(cfg, use_kernel=False)
     if batch is None:
-        batch = {"tokens": torch.randint(
-            0, cfg.vocab_size, (1, LM_PREFILL_S), device=dev,
-            generator=torch.Generator(device=dev).manual_seed(2))}
+        batch = prefill_batch(dev, cfg)
     toks = batch["tokens"]
     b, s = toks.shape
     s_enc = (batch["encoder_embeddings"].shape[1]
@@ -4037,8 +4079,8 @@ def phase_lm_hybrid(dev):
                     "and the prefill)")
     model, params = draw_lm(dev, cfg)
     log(f"  (a) prefill of {LM_PREFILL_S} tokens")
-    launches, aux, _, (ssd,) = lm_prefill(
-        dev, model, params, record=[(mamba2, "ssd_chunked", 1)])[:4]
+    launches, aux, _, (ssd,), logits = lm_prefill(
+        dev, model, params, record=[(mamba2, "ssd_chunked", 1)])
     check(float(aux) == 0.0, f"the hybrid's aux is {float(aux)}, not 0")
     (x, a, B, C, chunk), (y, h) = ssd[0]
     del ssd
@@ -4061,7 +4103,104 @@ def phase_lm_hybrid(dev):
           "ssd_sequential")
     del x, a, B, C, y, h, ys, hs
     log("  (b) serving")
-    return launches, lm_serve(dev, model, params)
+    return launches, lm_serve(dev, model, params), (model, params, logits)
+
+
+def phase_host_mesh(dev, model, params, logits, launches):
+    """Phase 26: zamba2's params placed on ``make_host_mesh()`` (a (1, 1)
+    mesh over a world of one, NCCL) by ``param_specs`` ("tp") as DTensors
+    (``distribute_tensor``), each shard bit-identical to its param; phase
+    21's prefill run from the local shards, through kernels 7 and 8 as
+    often as there, bit-identical to phase 21's logits.  Returns the
+    prefill's launch counts."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed import param_specs
+    from repro_torch.distributed.sharding import spec_placements
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh()
+    try:
+        log(f"  host mesh: {mesh}, backend {dist.get_backend()}, world "
+            f"{dist.get_world_size()}")
+        check(tuple(mesh.shape) == (1, 1)
+              and mesh.mesh_dim_names == ("data", "model")
+              and mesh.device_type == "cuda"
+              and dist.get_backend() == "nccl",
+              f"make_host_mesh() gave {mesh} over {dist.get_backend()}")
+        specs = param_specs(model.cfg, params, mesh, "tp")
+        t0 = time.perf_counter()
+        shards = {k: distribute_tensor(v, mesh, spec_placements(specs[k],
+                                                                mesh))
+                  for k, v in params.items()}
+        local = {k: d.to_local() for k, d in shards.items()}
+        torch.cuda.synchronize()
+        sharded = sum(any(a is not None for a in sp)
+                      for sp in specs.values())
+        same = [k for k in params if torch.equal(local[k], params[k])
+                and local[k].dtype == params[k].dtype]
+        log(f"  {len(params)} params placed ({sharded} with a sharded "
+            f"spec, every axis of size 1) in "
+            f"{time.perf_counter() - t0:.3f} s; local shards bit-identical "
+            f"{len(same)} of {len(params)}")
+        check(len(same) == len(params), "a local shard differs from its "
+              f"param: {sorted(set(params) - set(same))[:4]}")
+        batch = prefill_batch(dev, model.cfg)
+        with torch.no_grad():
+            ops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, _, _ = model.forward(local, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        got_launches = dict(ops.LAUNCHES)
+        err = float((got - logits).abs().max())
+        log(f"  prefill from the local shards: wall {wall:.3f} s, launches "
+            f"{got_launches}; bit-identical to phase 21's "
+            f"{torch.equal(got, logits)} (max abs {err:.3e})")
+        for name in ("flash_attention", "rmsnorm"):
+            check(got_launches[name] == launches[name],
+                  f"{name} launched {got_launches[name]} times from the "
+                  f"shards, {launches[name]} in phase 21")
+        check(torch.equal(got, logits), "the prefill from the host mesh's "
+              "local shards is not bit-identical to phase 21's")
+        del shards, local, got
+    finally:
+        dist.destroy_process_group()
+    return got_launches
+
+
+def phase_dryrun():
+    """Phase 25: ``dry_run`` of each of ``DRYRUN_CASES`` at published
+    widths on the fake world of 512 ranks (this lane's own process: the
+    fake group is process-global), each record printed on a line of its
+    own; each must be ok with bytes a device and FLOPs above 0, and
+    whether its bytes a device fit the card's 80 GB is printed (a count
+    of the trace, not a measurement)."""
+    from repro_torch.launch import dryrun
+
+    dryrun.force_world(512)
+    for arch, shape, mesh, mode, cp in DRYRUN_CASES:
+        rec = dryrun.dry_run(arch, shape, multi_pod=mesh == "multi",
+                             sharding_mode=mode, context_parallel=cp,
+                             verbose=False)
+        log("  " + json.dumps(rec))
+        per = rec["memory"]["bytes_per_device"]
+        log(f"  {arch} x {shape} x {mesh} ({mode}"
+            + (", context parallel" if cp else "") + f"): trace "
+            f"{rec['trace_s']} s, {per / 1e9:.2f} GB a device (arguments "
+            f"{rec['memory']['argument_size_in_bytes'] / 1e9:.2f} GB), "
+            f"{'fits' if per <= CARD_BYTES else 'does not fit'} the "
+            f"card's {CARD_BYTES / 1e9:.0f} GB (a count); flops "
+            f"{rec['cost']['flops']:.3e} a rank; collectives "
+            f"{rec['collectives']['total_bytes'] / 1e9:.2f} GB "
+            f"{rec['collectives']['counts']}")
+        check(rec["ok"] and per > 0 and rec["cost"]["flops"] > 0,
+              f"the dry run of {arch} x {shape} x {mesh} ({mode}) is not "
+              "ok or counts nothing")
 
 
 # ---------------------------------------------------------------------------
@@ -4451,7 +4590,12 @@ def lane_lm_families():
                "attention block every 6, 32/32 heads of 64, tied vocab "
                f"32000, fp32): prefill of {LM_PREFILL_S} tokens, generate "
                "with batch 4, prompt 16, 32 greedy tokens"):
-        hprefill, hserve = phase_lm_hybrid(dev)
+        hprefill, hserve, (hmodel, hparams, hlogits) = phase_lm_hybrid(dev)
+    with phase("host_mesh", "26: zamba2-1.2b's params on make_host_mesh() "
+               "(1 x 1, NCCL) by param_specs as DTensors, phase 21's "
+               "prefill from the local shards"):
+        mlaunches = phase_host_mesh(dev, hmodel, hparams, hlogits, hprefill)
+    del hmodel, hparams, hlogits
     gc.collect()
     torch.cuda.empty_cache()
     with phase("lm_xlstm", "22: xLSTM LM, xlstm-125m at its published "
@@ -4478,10 +4622,23 @@ def lane_lm_families():
         vprefill, vserve = phase_lm_vlm(dev)
     return {"lm_moe_prefill": mprefill, "lm_moe_serve": mserve,
             "lm_hybrid_prefill": hprefill, "lm_hybrid_serve": hserve,
+            "lm_host_mesh": mlaunches,
             "lm_xlstm_prefill": xprefill, "lm_xlstm_serve": xserve,
             "lm_audio_prefill": aprefill, "lm_audio_serve": aserve,
             "lm_audio_decode": adecode, "lm_vlm_prefill": vprefill,
             "lm_vlm_serve": vserve}
+
+
+def lane_dryrun():
+    """Phase 25; uses no card, so it launches no kernel.  It runs at the
+    lowest CPU priority, so that the host-bound phases of lane
+    ``lm_families`` beside it keep their cores."""
+    os.nice(19)
+    with phase("dryrun", "25: the shape-only dry run at published widths "
+               f"on the fake world's production meshes, {len(DRYRUN_CASES)} "
+               "combinations"):
+        phase_dryrun()
+    return {}
 
 
 def lane_main(name: str, parent: int) -> int:
@@ -4503,7 +4660,8 @@ def lane_main(name: str, parent: int) -> int:
     launches = {"sync_cnn": lane_sync_cnn, "translm": lane_translm,
                 "xlstm": lane_xlstm, "lm": lane_lm,
                 "sharded": lane_sharded,
-                "lm_families": lane_lm_families}[name]()
+                "lm_families": lane_lm_families,
+                "dryrun": lane_dryrun}[name]()
     tmp = LANE_DIR / f"{name}.json.tmp"
     tmp.write_text(json.dumps({"launches": launches,
                                "phases": PHASE_SECONDS, **LANE_RESULTS}))
@@ -4624,9 +4782,10 @@ def main() -> int:
         f"{SHARDED_LANES[0]}, alone: its {SHARDED_RANKS} ranks are two more "
         f"processes on the card")
     sh_path, sh_phases, _ = run_lanes(SHARDED_LANES)
-    log(f"[{time.time() - T0:.0f} s] == phases 20-24 in lane "
-        f"{FAMILY_LANES[0]}, alone: its prefills are GPU-bound, as lane "
-        f"{LM_LANES[0]}'s")
+    log(f"[{time.time() - T0:.0f} s] == phases 20-24 and 26 in lane "
+        f"{FAMILY_LANES[0]}, its prefills GPU-bound as lane "
+        f"{LM_LANES[0]}'s, beside phase 25 in lane {FAMILY_LANES[1]}, "
+        f"which uses no card")
     fam_path, fam_phases, _ = run_lanes(FAMILY_LANES)
     PHASE_SECONDS.update(lane_phases)
     for paths, phases in ((lm_path, lm_phases), (sh_path, sh_phases),

@@ -1,3 +1,8 @@
-"""The LM launchers: ``train`` (centralized and FedCore-for-LM training)
-and ``serve`` (KV-cache generation).  The JAX package's mesh helpers
-and its dry run come with the sharding work (ROADMAP item 17)."""
+"""The LM launchers: ``train`` (centralized and FedCore-for-LM training),
+``serve`` (KV-cache generation), ``dryrun`` (the shape-only run of every
+arch x shape x mesh) and the mesh builders below."""
+from repro_torch.launch import mesh  # noqa: F401
+from repro_torch.launch.mesh import (  # noqa: F401
+    make_host_mesh,
+    make_production_mesh,
+)

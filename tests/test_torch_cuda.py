@@ -1095,3 +1095,47 @@ def test_audio_decode_state_runs_the_encoder_through_the_kernels(cuda):
                                             "encoder_embeddings": enc})
     torch.testing.assert_close(torch.cat(outs, dim=1), full, rtol=3e-4,
                                atol=3e-4)
+
+
+def test_host_mesh_on_the_card(cuda):
+    """``make_host_mesh()``: a (1, 1) (data, model) mesh over a world of
+    one under NCCL on the card; a smoke zamba2's params placed by
+    ``param_specs`` as DTensors, each local shard bit-identical to its
+    param, and the forward from the shards bit-identical to the
+    params' own.  The world of one is taken down after."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import param_specs
+    from repro_torch.distributed.sharding import spec_placements
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+
+    if dist.is_initialized():
+        pytest.skip("a process group exists in this process")
+    mesh = make_host_mesh()
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        assert tuple(mesh.shape) == (1, 1)
+        assert mesh.mesh_dim_names == ("data", "model")
+        assert mesh.device_type == "cuda"
+        cfg = get_config("zamba2-1.2b", smoke=True)
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=cuda).manual_seed(0),
+                            device=cuda)
+        specs = param_specs(cfg, params, mesh, "tp")
+        local = {k: distribute_tensor(v, mesh, spec_placements(specs[k],
+                                                               mesh))
+                 .to_local() for k, v in params.items()}
+        for k in params:
+            _same(local[k], params[k])
+        tokens = torch.randint(0, cfg.vocab_size, (2, 64), device=cuda,
+                               generator=torch.Generator(
+                                   device=cuda).manual_seed(1))
+        with torch.no_grad():
+            want, _, _ = model.forward(params, {"tokens": tokens})
+            got, _, _ = model.forward(local, {"tokens": tokens})
+        _same(got, want)
+    finally:
+        dist.destroy_process_group()

@@ -80,12 +80,9 @@ def test_importing_the_async_fleet_engine_loads_no_jax():
 
 
 # public names of the JAX package's that belong to open ROADMAP items:
-# the mesh sharding helpers of ``repro.distributed`` and their module
-# (item 17); ``repro.fed`` and ``repro.fed.fleet`` have none left
-OPEN_ITEM_NAMES = {"fed": set(), "fed.fleet": set(),
-                   "distributed": {"batch_specs", "decode_state_specs",
-                                   "param_specs", "shard_batch_axes",
-                                   "sharding"}}
+# none since the mesh sharding helpers of ``repro.distributed`` and their
+# module were ported (item 17)
+OPEN_ITEM_NAMES = {"fed": set(), "fed.fleet": set(), "distributed": set()}
 
 
 @pytest.mark.parametrize("package", sorted(OPEN_ITEM_NAMES))
@@ -157,21 +154,19 @@ def test_entry_points_without_device_need_cuda():
 
 # the LM path's packages: public names of the JAX package's that belong
 # to open ROADMAP items, read in a fresh interpreter after importing the
-# package alone (so no other test's imports add submodules): the
-# launchers' mesh helpers and dry run (item 17)
+# package alone (so no other test's imports add submodules): none since
+# the launchers' mesh helpers and dry run were ported (item 17)
 LM_OPEN_ITEM_NAMES = {"models": set(), "optim": set(),
-                      "utils": set(), "configs": set(),
-                      "launch": {"mesh", "make_host_mesh",
-                                 "make_production_mesh"}}
+                      "utils": set(), "configs": set(), "launch": set()}
 # the public names a reference module defines that belong to open items:
-# none since the sLSTM half of models/xlstm.py was ported; only item 17's
-# launcher names above stay open
+# none since item 17
 LM_OPEN_MODULE_NAMES = {}
 LM_MODULES = ("models.model", "models.attention", "models.layers",
               "models.training", "models.xlstm", "models.moe",
               "models.mamba2", "optim.optimizers",
               "optim.schedules", "utils.tree", "configs.base",
-              "launch.train", "launch.serve")
+              "launch.train", "launch.serve", "launch.mesh",
+              "launch.dryrun", "distributed.sharding")
 
 
 @functools.lru_cache(maxsize=None)
