@@ -1558,61 +1558,6 @@ def profiled_calls(fn):
     return res
 
 
-def stream_time_by_part(fn):
-    """Run ``fn`` with CUDA events around the fleet's per-client
-    gradient-feature passes, its selection solves and, inside these, the
-    distance-free solver's column rebuilds (BUILD) and medoid-slab
-    rebuilds (SWAP); returns {part: (calls, stream seconds)}.  A part's
-    time runs from the stream reaching its first operation to the stream
-    finishing its last, so it includes the card's waits for the host to
-    launch the part's operations.  Host spans cannot split these: the
-    feature passes return before the card runs them, and the selection
-    span's first host sync waits for them."""
-    import torch
-
-    import repro_torch.core.kmedoids as km
-    from repro_torch.fed.fleet import FleetEngine
-
-    marks, stack = {}, []
-
-    def timed(part, inner, not_inside=None):
-        def wrapper(*args, **kwargs):
-            if not_inside in stack:
-                return inner(*args, **kwargs)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            stack.append(part)
-            start.record()
-            try:
-                return inner(*args, **kwargs)
-            finally:
-                end.record()
-                stack.pop()
-                marks.setdefault(part, []).append((start, end))
-        return wrapper
-
-    patches = [(FleetEngine, "_features", "grad_features", None),
-               (FleetEngine, "_select", "selection", None),
-               (km, "_col_dists", "column rebuilds (BUILD)",
-                "medoid-slab rebuilds (SWAP)"),
-               (km, "_medoid_dists", "medoid-slab rebuilds (SWAP)", None)]
-    saved = [(owner, attr, getattr(owner, attr))
-             for owner, attr, _, _ in patches]
-    for owner, attr, part, not_inside in patches:
-        setattr(owner, attr, timed(part, getattr(owner, attr), not_inside))
-    try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    finally:
-        for owner, attr, inner in saved:
-            setattr(owner, attr, inner)
-    return wall, {part: (len(ev), sum(a.elapsed_time(b) for a, b in ev)
-                         * 1e-3) for part, ev in marks.items()}
-
-
 def fleet_setup(wl, clients):
     """Specs, config and round-0 cohort groups of a 200-client fleet
     (capabilities from seed 0, E = 5, B = 8, lr 0.03, 30 % stragglers);
@@ -1759,9 +1704,8 @@ def phase_fleet():
     kept, launches, out = fleet_main_run(wl, clients, specs, cfg,
                                          FLEET_KERNELS)
 
-    # three more one-round runs, alike but for what watches them: bare
-    # (the wall), with CUDA events around the selection's parts, and
-    # under torch.profiler
+    # two more one-round runs, alike but for what watches them: bare
+    # (the wall) and under torch.profiler
     def one_round():
         return run_fleet(wl, clients, specs, cfg, 1, straggler_pct=30.0)
 
@@ -1771,11 +1715,6 @@ def phase_fleet():
     log_kernel_time(by_name, busy, "distance-free (5-6)", "from_feats")
     log_kernel_time(by_name, busy, "BUILD over D (2)", "build_cost_walk")
     log_kernel_time(by_name, busy, "Δ-sweep over D (3)", "delta_sweep_")
-    ewall, parts = stream_time_by_part(one_round)
-    log(f"  stream time by part (one more round with CUDA events, wall "
-        f"{ewall:.3f} s): " + ", ".join(
-            f"{part} {n} calls {t:.3f} s ({100 * t / bare_wall:.1f}% of "
-            f"the bare round)" for part, (n, t) in parts.items()))
     return wl, clients, specs, cfg, kept, launches, out
 
 

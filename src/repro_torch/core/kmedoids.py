@@ -40,6 +40,7 @@ from repro_torch.kernels.ops import (kmedoids_build_cost,
                                      kmedoids_delta_sweep,
                                      kmedoids_delta_sweep_from_feats,
                                      pairwise_l2, resolve_use_kernel)
+from repro_torch.obs import get_recorder
 
 BIG = 1e30
 
@@ -154,21 +155,24 @@ def _build_swap(valid: torch.Tensor, k: int, max_sweeps: int, add_cost,
     iota_m = torch.arange(m, device=dev)
     iota_k = torch.arange(k, device=dev)
 
+    obs = get_recorder()
+
     # ---- BUILD (greedy adds; sums masked by vf, invalid candidates BIG) ---
     # d_near = +BIG for the first pick reduces the add-cost to the column sum
-    cost0 = torch.where(invalid, BIG,
-                        add_cost(torch.full((c, m), BIG, device=dev)))
-    first = torch.argmin(cost0, dim=1)                             # (C,)
-    d_near = col_dists(first)
-    chosen = iota_m[None] == first[:, None]
-    picks = [first]
-    for _ in range(k - 1):
-        cost = torch.where(chosen | invalid, BIG, add_cost(d_near))
-        nxt = torch.argmin(cost, dim=1)
-        d_near = torch.minimum(d_near, col_dists(nxt))
-        chosen = chosen | (iota_m[None] == nxt[:, None])
-        picks.append(nxt)
-    medoids = torch.stack(picks, dim=1)                            # (C, k)
+    with obs.span("kmedoids_build", n_clients=c, m=m, k=k):
+        cost0 = torch.where(invalid, BIG,
+                            add_cost(torch.full((c, m), BIG, device=dev)))
+        first = torch.argmin(cost0, dim=1)                         # (C,)
+        d_near = col_dists(first)
+        chosen = iota_m[None] == first[:, None]
+        picks = [first]
+        for _ in range(k - 1):
+            cost = torch.where(chosen | invalid, BIG, add_cost(d_near))
+            nxt = torch.argmin(cost, dim=1)
+            d_near = torch.minimum(d_near, col_dists(nxt))
+            chosen = chosen | (iota_m[None] == nxt[:, None])
+            picks.append(nxt)
+        medoids = torch.stack(picks, dim=1)                        # (C, k)
 
     # ---- SWAP sweeps (FasterPAM Δ table; all reductions masked by vf) -----
     def sweep(medoids):
@@ -192,11 +196,14 @@ def _build_swap(valid: torch.Tensor, k: int, max_sweeps: int, add_cost,
         medoids = torch.where((best < -1e-6)[:, None], swapped, medoids)
         return medoids, best
 
-    best = torch.full((c,), -float("inf"), device=dev)
-    it = 0
-    while it < max_sweeps and bool(torch.any(best < -1e-6)):
-        medoids, best = sweep(medoids)
-        it += 1
+    # one host round trip a sweep: the any-lane-still-improving test
+    with obs.span("kmedoids_swap", n_clients=c, m=m, k=k) as sp:
+        best = torch.full((c,), -float("inf"), device=dev)
+        it = 0
+        while it < max_sweeps and bool(torch.any(best < -1e-6)):
+            medoids, best = sweep(medoids)
+            it += 1
+        sp.attrs["sweeps"] = it
 
     dm = medoid_dists(medoids)
     assignment = torch.where(valid.bool(), torch.argmin(dm, dim=-1), -1)

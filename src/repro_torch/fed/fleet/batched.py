@@ -291,8 +291,10 @@ class FleetEngine:
 
     def _vm_sgd(self, p, data, w, idx):
         loss = None
-        for t in range(idx.shape[1]):
-            p, loss = self._vm_sgd_step(p, data, w, idx[:, t])
+        with get_recorder().span("sgd_steps", steps=idx.shape[1],
+                                 n_clients=idx.shape[0]):
+            for t in range(idx.shape[1]):
+                p, loss = self._vm_sgd_step(p, data, w, idx[:, t])
         return p, loss
 
     def _group_features(self, params: Params,
@@ -335,11 +337,13 @@ class FleetEngine:
                                        group.k)
             p, _ = self._vm_sgd(p0, data, w,
                                 self._batch_indices(group, slice(0, 1)))
-            rows = torch.arange(c, device=self.device)[:, None]
-            ix = coreset.indices.long()
-            cdata = {f: v[rows, ix] for f, v in data.items()}   # (C, k, ...)
-            for _ in range(max(cfg.epochs - 1, 1)):
-                p, losses = self._vm_core_step(p, cdata, coreset.weights)
+            steps = max(cfg.epochs - 1, 1)
+            with obs.span("coreset_epochs", steps=steps, n_clients=c):
+                rows = torch.arange(c, device=self.device)[:, None]
+                ix = coreset.indices.long()
+                cdata = {f: v[rows, ix] for f, v in data.items()}  # (C, k, ..)
+                for _ in range(steps):
+                    p, losses = self._vm_core_step(p, cdata, coreset.weights)
             return p, losses.cpu().numpy(), coreset.indices.cpu().numpy()
 
     def _run_client_loop(self, params: Params, group: CohortGroup, i: int

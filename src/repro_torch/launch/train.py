@@ -34,6 +34,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import Model
 from repro_torch.models.training import make_train_step
+from repro_torch.obs import get_recorder
 from repro_torch.optim.optimizers import adam, sgd
 from repro_torch.optim.schedules import warmup_cosine_lr
 from repro_torch.utils.tree import param_count, tree_weighted_mean
@@ -135,27 +136,30 @@ def train_fedcore_lm(cfg: ModelConfig, rounds: int, steps_per_epoch: int,
     from repro_torch.core.coreset import build_coreset, coreset_batch
     from repro_torch.models.small import _last_layer_grad_feature
 
+    obs = get_recorder()
     dev = resolve_device(device)
-    model = Model(cfg, use_kernel=use_kernel)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed), dev)
-    rng = np.random.default_rng(seed)
-    opt = sgd(lr)
-    step_fn = make_train_step(model.loss, opt, donate=False)
+    with obs.span("lm_init"):
+        model = Model(cfg, use_kernel=use_kernel)
+        params = model.init(torch.Generator(device=dev).manual_seed(seed),
+                            dev)
+        rng = np.random.default_rng(seed)
+        opt = sgd(lr)
+        step_fn = make_train_step(model.loss, opt, donate=False)
 
-    # build silo datasets
-    stream = synthetic_stream(cfg.vocab_size, batch, seq, seed, dev)
-    silo_data = []
-    for s in range(silos):
-        seqs = [next(stream) for _ in range(steps_per_epoch)]
-        silo_data.append({
-            "tokens": torch.cat([b["tokens"] for b in seqs]),
-            "labels": torch.cat([b["labels"] for b in seqs]),
-        })
-    caps = np.maximum(rng.normal(1.0, 0.5, silos), 0.2)
-    m = steps_per_epoch * batch  # sequences per silo
-    epochs = 2
-    times_full = epochs * m / caps
-    tau = float(np.percentile(times_full, 100 - straggler_pct))
+        # build silo datasets
+        stream = synthetic_stream(cfg.vocab_size, batch, seq, seed, dev)
+        silo_data = []
+        for s in range(silos):
+            seqs = [next(stream) for _ in range(steps_per_epoch)]
+            silo_data.append({
+                "tokens": torch.cat([b["tokens"] for b in seqs]),
+                "labels": torch.cat([b["labels"] for b in seqs]),
+            })
+        caps = np.maximum(rng.normal(1.0, 0.5, silos), 0.2)
+        m = steps_per_epoch * batch  # sequences per silo
+        epochs = 2
+        times_full = epochs * m / caps
+        tau = float(np.percentile(times_full, 100 - straggler_pct))
 
     def features_fn(p, data):
         with torch.no_grad():
@@ -167,56 +171,71 @@ def train_fedcore_lm(cfg: ModelConfig, rounds: int, steps_per_epoch: int,
         return torch.ones((bt["tokens"].shape[0],), dtype=torch.float32,
                           device=dev)
 
+    def full_epoch(p_local, opt_state, data):
+        for lo in range(0, m, batch):
+            bt = {k: v[lo:lo + batch] for k, v in data.items()}
+            bt["weights"] = ones(bt)
+            p_local, opt_state, met = step_fn(p_local, opt_state, bt)
+        return p_local, opt_state, met
+
     history, coresets = [], []
     for r in range(rounds):
-        local_params = []
-        round_time = 0.0
-        n_core = 0
-        chosen = {}
-        for s in range(silos):
-            data = silo_data[s]
-            needs = epochs * m > caps[s] * tau
-            p_local = params
-            opt_state = opt.init(p_local)
-            if needs:
-                feats = features_fn(params, data)
-                budget = max(2, int((caps[s] * tau - m) // max(epochs - 1,
-                                                               1)))
-                budget = min(budget, m)
-                cs = build_coreset(feats, budget, use_kernel=use_kernel)
-                chosen[s] = cs.indices.cpu().tolist()
-                cdata = coreset_batch(
-                    {k: v.cpu().numpy() for k, v in data.items()}, cs, m)
-                n_core += 1
-                t = (m + (epochs - 1) * budget) / caps[s]
-                # 1 full epoch + (E-1) coreset epochs
-                for lo in range(0, m, batch):
-                    bt = {k: v[lo:lo + batch] for k, v in data.items()}
-                    bt["weights"] = ones(bt)
-                    p_local, opt_state, met = step_fn(p_local, opt_state, bt)
-                for _ in range(epochs - 1):
-                    bt = {k: torch.from_numpy(v).to(dev)
-                          for k, v in cdata.items()}
-                    p_local, opt_state, met = step_fn(p_local, opt_state, bt)
-            else:
-                t = epochs * m / caps[s]
-                for _ in range(epochs):
-                    for lo in range(0, m, batch):
-                        bt = {k: v[lo:lo + batch] for k, v in data.items()}
-                        bt["weights"] = ones(bt)
-                        p_local, opt_state, met = step_fn(p_local, opt_state,
-                                                          bt)
-            local_params.append(p_local)
-            round_time = max(round_time, t)
-        params = tree_weighted_mean(local_params, [1.0] * silos)
-        loss = float(met["loss"])
-        history.append({"round": r, "loss": loss,
-                        "round_time": round_time, "tau": tau,
-                        "coreset_silos": n_core})
-        coresets.append(chosen)
-        print(f"[fedcore-lm] round {r} loss {loss:.4f} "
-              f"time/tau {round_time/tau:.3f} coreset silos {n_core}",
-              flush=True)
+        with obs.span("round", round=r):
+            local_params = []
+            round_time = 0.0
+            n_core = 0
+            chosen = {}
+            for s in range(silos):
+                data = silo_data[s]
+                needs = epochs * m > caps[s] * tau
+                p_local = params
+                opt_state = opt.init(p_local)
+                if needs:
+                    budget = max(2, int((caps[s] * tau - m)
+                                        // max(epochs - 1, 1)))
+                    budget = min(budget, m)
+                    with obs.span("coreset_group", silo=s, k=budget):
+                        with obs.span("grad_features"):
+                            feats = features_fn(params, data)
+                        with obs.span("selection"):
+                            cs = build_coreset(feats, budget,
+                                               use_kernel=use_kernel)
+                            chosen[s] = cs.indices.cpu().tolist()
+                            cdata = coreset_batch(
+                                {k: v.cpu().numpy() for k, v in data.items()},
+                                cs, m)
+                        n_core += 1
+                        t = (m + (epochs - 1) * budget) / caps[s]
+                        # 1 full epoch + (E-1) coreset epochs
+                        with obs.span("sgd_steps", steps=steps_per_epoch):
+                            p_local, opt_state, met = full_epoch(
+                                p_local, opt_state, data)
+                        with obs.span("coreset_epochs", steps=epochs - 1):
+                            for _ in range(epochs - 1):
+                                bt = {k: torch.from_numpy(v).to(dev)
+                                      for k, v in cdata.items()}
+                                p_local, opt_state, met = step_fn(
+                                    p_local, opt_state, bt)
+                else:
+                    t = epochs * m / caps[s]
+                    with obs.span("local_sgd", silo=s), \
+                            obs.span("sgd_steps",
+                                     steps=epochs * steps_per_epoch):
+                        for _ in range(epochs):
+                            p_local, opt_state, met = full_epoch(
+                                p_local, opt_state, data)
+                local_params.append(p_local)
+                round_time = max(round_time, t)
+            with obs.span("aggregate"):
+                params = tree_weighted_mean(local_params, [1.0] * silos)
+            loss = float(met["loss"])
+            history.append({"round": r, "loss": loss,
+                            "round_time": round_time, "tau": tau,
+                            "coreset_silos": n_core})
+            coresets.append(chosen)
+            print(f"[fedcore-lm] round {r} loss {loss:.4f} "
+                  f"time/tau {round_time/tau:.3f} coreset silos {n_core}",
+                  flush=True)
     assert all(h["round_time"] <= tau * 1.001 for h in history), \
         "FedCore round exceeded deadline"
     return {"history": history, "coresets": coresets, "params": params}

@@ -9,8 +9,11 @@ one schema.  This package provides:
   * ``Recorder`` (``repro.obs.recorder``) — cheap structured events,
     monotonic-clock spans for the round phases (cohort build, local SGD,
     selection, coreset epochs, gather, aggregation, eval, ...), and a
-    ``torch.profiler.record_function`` bridge so device traces line up
-    with our spans;
+    ``torch.profiler`` range bridge so profiler traces line up with our
+    spans.  Where CUDA runs, each span also carries ``dev_s``,
+    its stream time from CUDA events recorded at its begin and end (the
+    stream's waits for the host inside it included); they are read once
+    the outermost span ends, the recorder's one wait;
   * a metrics registry (``repro.obs.metrics``) — counters / gauges /
     histograms: dispatches, program-cache hits/misses/recompiles,
     per-client busy time, deadline-violation and staleness histograms,

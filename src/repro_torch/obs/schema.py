@@ -9,7 +9,8 @@ Kinds:
 * ``run``    — ``data`` describes the run: at least ``runtime`` (one of
   ``sync`` / ``async`` / ``fleet`` / ``async_fleet``) and ``engine``.
 * ``span``   — a closed phase span: ``name``, ``sid``, ``parent`` (sid
-  or None), ``depth``, ``t0 <= t1``, ``dur``, free-form ``attrs``.
+  or None), ``depth``, ``t0 <= t1``, ``dur``, free-form ``attrs``, and
+  ``dev_s``: the span's stream time in seconds, or None without CUDA.
 * ``event``  — a named point event with a ``data`` dict.  Two names are
   canonical and validated strictly so loop/batched/sharded/sync/async
   runs are directly comparable:
@@ -66,7 +67,8 @@ PHASES = ("cohort_build", "cohort_select", "local_update", "local_sgd",
           "grad_features", "distances", "selection", "coreset_group",
           "coreset_epochs", "dispatch", "gather", "aggregate",
           "trace_account", "eval", "buffer_fill", "dispatch_wave",
-          "checkpoint")
+          "checkpoint", "lm_init", "sgd_steps", "kmedoids_build",
+          "kmedoids_swap")
 
 
 def _fail(msg: str, record: dict) -> None:
@@ -121,6 +123,10 @@ def validate_record(record: dict) -> None:
         if not math.isclose(record["dur"], record["t1"] - record["t0"],
                             rel_tol=1e-9, abs_tol=1e-9):
             _fail("span dur != t1 - t0", record)
+        dev_s = record.get("dev_s")
+        if dev_s is not None and (not isinstance(dev_s, (int, float))
+                                  or isinstance(dev_s, bool) or dev_s < 0):
+            _fail("span dev_s is not a non-negative number or None", record)
 
     elif kind == "event":
         name = record.get("name")
