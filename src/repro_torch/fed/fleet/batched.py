@@ -28,10 +28,11 @@ params, k-medoids coreset selection, one full-set epoch, then E−1
 weighted full-batch epochs on the coreset.
 
 The JAX package compiles each group into one jitted program with donated
-buffers; PyTorch runs eagerly and has no counterpart of either, so
-``dispatch_count`` counts one dispatch per group (one per step on the
-loop path) as the reference does, and its program-cache counters have no
-counterpart here.  ``engine="sharded"`` splits each group's clients
+buffers.  On the card the batched engine's counterpart is a CUDA graph
+of each vmapped step, captured once for each shape and replayed for
+every step (``repro_torch.fed.fleet._graphs``); ``dispatch_count`` counts
+one dispatch per group (one per step on the loop path) as the reference
+does.  ``engine="sharded"`` splits each group's clients
 across the ranks of a process group (``repro_torch.fed.fleet.sharded``).
 """
 from __future__ import annotations
@@ -54,6 +55,7 @@ from repro_torch.fed.cost import resolve_cost
 from repro_torch.fed.aggregators import ROBUST_METHODS, robust_combine
 from repro_torch.fed.fleet.faults import (FaultTrace, corrupt_stacked,
                                           make_fault_trace)
+from repro_torch.fed.fleet._graphs import StepGraphs
 from repro_torch.fed.fleet.workloads import client_num_samples
 from repro_torch.fed.server import RoundRecord, make_eval_fn
 from repro_torch.fed.simulator import (CapabilityTrace, ClientSpec,
@@ -224,6 +226,11 @@ class FleetEngine:
     ``dispatch_count`` counts dispatches through ``count_dispatch``, as
     the JAX package does: one per group on the batched path, one per step
     (and per feature pass) on the loop path.
+
+    On the card the batched path replays each vmapped step from a CUDA
+    graph of its shape (``StepGraphs``), with the eager step's kernels;
+    the counters ``fleet.graph_captures``, ``fleet.graph_replays``,
+    ``fleet.eager_steps`` and ``fleet.graph_evictions`` say how often.
     """
 
     def __init__(self, model, cfg: FleetConfig, device: DeviceLike = None):
@@ -233,6 +240,7 @@ class FleetEngine:
         self.dispatch_count = 0
         self._vm_sgd_step = vmap(self._sgd_step)
         self._vm_core_step = vmap(self._core_step)
+        self._graphs = StepGraphs(self.device)
 
     def count_dispatch(self, n: int = 1) -> None:
         """The dispatch accounting point of every execution mode."""
@@ -290,11 +298,12 @@ class FleetEngine:
                                .astype(np.int64))
 
     def _vm_sgd(self, p, data, w, idx):
-        loss = None
         with get_recorder().span("sgd_steps", steps=idx.shape[1],
-                                 n_clients=idx.shape[0]):
-            for t in range(idx.shape[1]):
-                p, loss = self._vm_sgd_step(p, data, w, idx[:, t])
+                                 n_clients=idx.shape[0]) as sp:
+            p, loss, graphed = self._graphs.run(
+                self._vm_sgd_step, p, (data, w), lambda t: (idx[:, t],),
+                idx.shape[1])
+            sp.attrs["graphed"] = graphed
         return p, loss
 
     def _group_features(self, params: Params,
@@ -322,7 +331,10 @@ class FleetEngine:
         with obs.span(name, **{"k": group.k, "n_clients": c, **span}):
             data = {f: self._to_device(v) for f, v in group.data.items()}
             w = self._to_device(group.valid.astype(np.float32))   # (C, M)
-            p0 = {k: v.expand((c,) + v.shape) for k, v in params.items()}
+            # contiguous, as a captured step's params are: an eager
+            # step then runs the same kernels on the same layout
+            p0 = {k: v.expand((c,) + v.shape).contiguous()
+                  for k, v in params.items()}
             if group.k == 0:     # full set: E epochs of mini-batch SGD
                 p, losses = self._vm_sgd(p0, data, w, self._batch_indices(
                     group, slice(None)))
@@ -338,12 +350,15 @@ class FleetEngine:
             p, _ = self._vm_sgd(p0, data, w,
                                 self._batch_indices(group, slice(0, 1)))
             steps = max(cfg.epochs - 1, 1)
-            with obs.span("coreset_epochs", steps=steps, n_clients=c):
+            with obs.span("coreset_epochs", steps=steps,
+                          n_clients=c) as sp:
                 rows = torch.arange(c, device=self.device)[:, None]
                 ix = coreset.indices.long()
                 cdata = {f: v[rows, ix] for f, v in data.items()}  # (C, k, ..)
-                for _ in range(steps):
-                    p, losses = self._vm_core_step(p, cdata, coreset.weights)
+                p, losses, graphed = self._graphs.run(
+                    self._vm_core_step, p, (cdata, coreset.weights),
+                    lambda t: (), steps)
+                sp.attrs["graphed"] = graphed
             return p, losses.cpu().numpy(), coreset.indices.cpu().numpy()
 
     def _run_client_loop(self, params: Params, group: CohortGroup, i: int

@@ -132,9 +132,10 @@ def test_fleet_straggler_group_recording_on_and_off_bit_identical():
                                     {"k": kk, "n_clients": c}, [
         ("grad_features", {"k": kk, "n_clients": c}, []),
         ("selection", {"k": kk, "n_clients": c}, solve),
-        ("sgd_steps", {"steps": steps, "n_clients": c}, []),
+        ("sgd_steps", {"steps": steps, "n_clients": c,
+                       "graphed": False}, []),
         ("coreset_epochs", {"steps": FLEET_CFG["epochs"] - 1,
-                            "n_clients": c}, [])])]
+                            "n_clients": c, "graphed": False}, [])])]
 
 
 @pytest.mark.parametrize("seed,max_sweeps", [
